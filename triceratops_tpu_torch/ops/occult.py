@@ -1,0 +1,92 @@
+"""Quadratic limb-darkened occultation deficit (torch, branch-free).
+
+Counterpart of the JAX package's ``ops/occult.py::occult_quad_deficit``:
+
+    D = [(1-u1-2u2) A0 + (u1+2u2) A1 + u2 J] / (pi (1 - u1/3 - u2/6))
+
+with the overlap area A0 and the r^2 integral J in closed form and the
+sqrt(1-r^2) integral A1 by Gauss-Legendre quadrature over the occulter
+arc after the endpoint-regularizing substitution eta = eta0 + (pi-eta0)
+sin^2(t). 16 nodes for float64, 11 for float32 (2.2e-8 worst case, below
+f32 round-off).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+_N_GL = 16
+_N_GL_F32 = 11
+
+
+def _gl_tables(n):
+    gl_x, gl_w = np.polynomial.legendre.leggauss(n)
+    gl_t = (np.pi / 4.0) * (gl_x + 1.0)
+    sin2t = np.sin(gl_t) ** 2
+    weight = (np.pi / 4.0) * gl_w * np.sin(2.0 * gl_t)
+    return sin2t, weight
+
+
+@lru_cache(maxsize=None)
+def _gl(device, dtype):
+    n = _N_GL if dtype == torch.float64 else _N_GL_F32
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in _gl_tables(n))
+
+
+def _stable_angle(num1, num2, cos_2x):
+    """atan2(sqrt(max(num1,0) max(num2,0)), cos_2x): an angle in [0, pi]
+    with a cancellation-free sine."""
+    s = torch.sqrt(torch.clamp_min(num1, 0.0) * torch.clamp_min(num2, 0.0))
+    return torch.atan2(s, cos_2x)
+
+
+def occult_quad_deficit(p, z, u1, u2):
+    """Flux deficit D(p, z) for quadratic limb darkening (broadcasts).
+
+    p: occulter/star radius ratio; z: center separation in stellar radii;
+    u1, u2: limb-darkening coefficients. All tensors of one float dtype.
+    Returns D in [0, 1] (0 out of transit)."""
+    z = torch.abs(z)
+    z = torch.minimum(z, 1.0 + p + 1.0)
+    zp2m = 1.0 - (z - p) ** 2
+    zp2p = (z + p) ** 2 - 1.0
+    kappa1 = _stable_angle(
+        p**2 - (z - 1.0) ** 2, (z + 1.0) ** 2 - p**2, z**2 + 1.0 - p**2)
+    eta0 = _stable_angle(zp2p, zp2m, 1.0 - z**2 - p**2)
+    d_eta = math.pi - eta0
+    sin_eta0 = torch.sin(eta0)
+    cos_eta0 = torch.cos(eta0)
+
+    A0 = kappa1 + p * (p * d_eta - z * sin_eta0)
+    zz_pp = z**2 + p**2
+    J = kappa1 / 2.0 + (2.0 * p / 4.0) * (
+        -(zz_pp * z + 2.0 * z * p**2) * sin_eta0
+        + zz_pp * p * d_eta
+        + 2.0 * z**2 * p * (d_eta / 2.0 - sin_eta0 * cos_eta0 / 2.0)
+    )
+
+    sin2t, wgt = _gl(z.device, p.dtype)
+    eta_k = eta0[..., None] + d_eta[..., None] * sin2t
+    cos_k = torch.cos(eta_k)
+    pe = p[..., None]
+    ze = z[..., None]
+    r2 = ze**2 + pe**2 + 2.0 * ze * pe * cos_k
+    one_m = torch.clamp_min(1.0 - r2, 0.0)
+    big = r2 > 1e-3
+    s_safe = torch.where(big, r2, torch.ones_like(r2))
+    G_big = (1.0 - one_m * torch.sqrt(one_m)) / (3.0 * s_safe)
+    G_small = 0.5 - r2 / 8.0 + r2 * r2 / 48.0
+    G = torch.where(big, G_big, G_small)
+    integrand = G * (ze * cos_k + pe)
+    A1 = (2.0 / 3.0) * kappa1 + 2.0 * p * d_eta * torch.sum(
+        wgt * integrand, dim=-1)
+
+    omega = 1.0 - u1 / 3.0 - u2 / 6.0
+    D = ((1.0 - u1 - 2.0 * u2) * A0 + (u1 + 2.0 * u2) * A1 + u2 * J) \
+        / (math.pi * omega)
+    return torch.clamp(D, 0.0, 1.0)

@@ -1,0 +1,10 @@
+"""User entry point: ``import triceratops_tpu_torch.triceratops as tr``.
+Re-exports the ``target`` class and the ported scenario functions, as
+the JAX package's ``triceratops`` module does."""
+
+from .frontend.target import target  # noqa: F401
+from .scenarios.api import lnZ_TTP, lnZ_TEB  # noqa: F401
+from .core.numerics import (  # noqa: F401
+    log_mean_exp as _log_mean_exp,
+    normalize_probabilities as _normalize_probabilities,
+)
