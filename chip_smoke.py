@@ -3,27 +3,35 @@
 Drives the port's main path once at full size and checks it:
 
   1. requires CUDA and prints the card's name and power limit;
-  2. builds the chi^2 kernel from csrc/ with nvcc and prints the build time;
-  3. compares the kernel with its plain torch version on the card at the
-     slice's chunk shape (16384 x 100, GL-4), at a long-curve shape
-     (n_t = 8055) and at ns = 1, and times both with CUDA events;
+  2. builds the chi^2 kernels (the v2 and the time-major v3 schedule, one
+     source) from csrc/ with nvcc and prints the build time;
+  3. compares each kernel with its plain torch version on the card at the
+     main path's chunk shape (16384 x 100, GL-4), at long-curve shapes
+     (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times
+     kernels, the v3 transpose and the plain version with CUDA events;
   4. runs target.from_stars -> calc_depths -> calc_probs(N = 1e6,
-     nsamples = 20) on a TOI-465-like target with two nearby stars (9 live
-     rows; the unported rows dropped) and checks the result and that the
-     kernel was launched;
+     nsamples = 20) on bench.py's configuration (a TOI-465-like target, a
+     3000-star synthetic TRILEGAL field) plus two nearby stars: all 21
+     rows, v2 schedule; checks the result and that the v2 kernel launched;
   5. reruns the same seed on the plain torch path and compares per-row lnZ;
-  6. times three warm calc_probs calls with different seeds.
+  v3. reruns the same seed under the v3 schedule: the v3 kernel launched,
+     the v2 kernel did not, per-row lnZ as in 4; then one warm v3 call;
+  6. times three warm calc_probs calls with different seeds (v2).
 
-Prints a JSON line with the kernel's numbers, then as its last line
+Prints a JSON line with both kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
 CUDA card, and outside a checkout of the repository.
 
 Run from the repository root:  python3 chip_smoke.py
+With --profile it also traces one warm calc_probs call on the kernel path
+and one on the plain path with torch.profiler (device time, idle share,
+kernel counts, the top device ops) before the JSON lines.
 """
 
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -31,9 +39,17 @@ import numpy as np
 N_DRAWS = 1_000_000
 NSAMPLES = 20
 EXPTIME = 0.00139
-UNPORTED = ["PTP", "PEB", "STP", "SEB"]
-LIVE_ROWS = [0, 1, 2, 15, 16, 17, 18, 19, 20]
 SIGMA_GATE = 5e-4     # noise level of the kernel-comparison inputs
+# H100 SXM peaks at the 700 W limit (NVIDIA data sheet): HBM3 bytes/s and
+# FP32 (non-tensor) flop/s
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+# FP32 flops (an FMA counts 2) of chi2_supersampled at one point and node:
+# z^2 model 4, sqrt 2, segment map 4, sqrt map 4, 2x 1, 17 Clenshaw steps
+# x 3, final step and clip 5, node weight 2; and per computed point the
+# dilution and chi^2 update, 6
+FLOPS_NODE_POINT = 73
+FLOPS_POINT = 6
 
 
 class SmokeFailure(Exception):
@@ -65,7 +81,8 @@ def phase_build(chi2_core):
     t0 = time.perf_counter()
     so = chi2_core.build(verbose=True)
     dt = time.perf_counter() - t0
-    print(f"phase 2: built {so.name} in {dt:.2f} s")
+    print(f"phase 2: built {so.name} (chi2_supersampled, "
+          f"chi2_supersampled_v3) in {dt:.2f} s")
     return dt
 
 
@@ -124,59 +141,115 @@ def _median_ms(torch, fn, reps=20):
     return float(np.median(times))
 
 
-def phase_kernel(torch, chi2_core):
-    """Kernel vs plain on the card. lnL = const - chi2 / (2 sigma^2), so
-    the gates act on d = |chi2_kernel - chi2_plain| / (2 sigma^2):
-    p99 < 0.05 and max < 1.0 (tests/test_pallas_core.py), identical finite
-    masks, and lnZ of the two within 1e-2 nats. At n_t = 8055 most draws
-    miss the curve by ~1e5 in lnL, where f32 summation order alone moves
-    lnL by O(1); there the absolute gates apply to the draws within 50 of
-    the best lnL (the ones that carry evidence weight) and a relative
-    gate (p99 < 1e-3, max < 2e-2, tests/test_pallas_core.py::TestPallasEB)
-    to all draws."""
+def chi2_bound(torch, args, offs):
+    """(bound_ms, bound_by, active share): the least time the card could
+    take for chi2_supersampled on these inputs. Bytes: each input read
+    once, the output written once. Operations: the FP32 flops this data
+    needs: every (draw, time) point evaluates its z^2 model to decide
+    whether it is in transit; the points in front with z < zmax at some
+    node (the ones whose deficit is not ~0) run the full per-node work."""
+    q0, q1, q2, front, cA, cB1, cB2, seg, g, obs = args
+    C, n_t = q0.shape
+    S = len(offs)
+    nbytes = 4 * (sum(a.numel() for a in args) + C)
+    zmax2 = (seg[:, 1] + 1.0 / seg[:, 4]) ** 2
+    inside = torch.zeros_like(front, dtype=torch.bool)
+    for d in offs:
+        inside |= (q0 + q1 * d + q2 * (d * d)) < zmax2[:, None]
+    n_active = int((inside & (front > 0)).sum())
+    flops = (n_active * (S * FLOPS_NODE_POINT + FLOPS_POINT)
+             + (C * n_t - n_active) * S * 4 + 2 * n_t)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), bound_by, n_active / (C * n_t)
+
+
+def _gate(torch, name, kern, plain, C):
+    """The kernel-vs-plain gates on lnL = const - chi2 / (2 sigma^2)."""
     from triceratops_tpu_torch.core.numerics import log_mean_exp_torch
+
+    inv = 1.0 / (2.0 * SIGMA_GATE ** 2)
+    lnL_k = (-kern.double() * inv).cpu().numpy()
+    lnL_p = (-plain.double() * inv).cpu().numpy()
+    check(np.array_equal(np.isfinite(lnL_k), np.isfinite(lnL_p)),
+          f"{name}: finite masks differ")
+    d = np.abs(lnL_k - lnL_p)
+    long_curve = name.split()[0] in ("long", "full")
+    near = lnL_p > lnL_p.max() - 50.0 if long_curve else slice(None)
+    p99, dmax = float(np.quantile(d[near], 0.99)), float(d[near].max())
+    check(p99 < 0.05 and dmax < 1.0, f"{name}: lnL diff p99 {p99} max {dmax}")
+    if long_curve:
+        rel = d / (np.abs(lnL_p) + 1.0)
+        check(np.quantile(rel, 0.99) < 1e-3 and rel.max() < 2e-2,
+              f"{name}: relative lnL diff {np.quantile(rel, 0.99)}, "
+              f"{rel.max()}")
+    dz = abs(float(log_mean_exp_torch(torch.as_tensor(lnL_k), C))
+             - float(log_mean_exp_torch(torch.as_tensor(lnL_p), C)))
+    check(dz < 1e-2, f"{name}: lnZ differs by {dz}")
+    return p99, dmax, dz
+
+
+def phase_kernel(torch, chi2_core):
+    """Each kernel vs its plain version on the card, at the chunk the main
+    path gives it (v2 rounds the draw chunk to 256, v3 to 128). lnL =
+    const - chi2 / (2 sigma^2), so the gates act on d = |chi2_kernel -
+    chi2_plain| / (2 sigma^2): p99 < 0.05 and max < 1.0
+    (tests/test_pallas_core.py), identical finite masks, and lnZ of the
+    two within 1e-2 nats. At n_t = 8055 and 20099 most draws miss the
+    curve by ~1e5 in lnL, where f32 summation order alone moves lnL by
+    O(1); there the absolute gates apply to the draws within 50 of the
+    best lnL (the ones that carry evidence weight) and a relative gate
+    (p99 < 1e-3, max < 2e-2, tests/test_pallas_core.py::TestPallasEB) to
+    all draws."""
     from triceratops_tpu_torch.ops.lightcurve import draw_chunk
 
-    def chunk(n_t, ns):
-        return -(-draw_chunk(n_t, ns) // chi2_core.DRAW_TILE) \
-            * chi2_core.DRAW_TILE
+    def chunk(n_t, ns, tile):
+        return -(-draw_chunk(n_t, ns) // tile) * tile
 
-    shapes = [("slice", chunk(100, NSAMPLES), 100, NSAMPLES, 0.15),
-              ("long", chunk(8055, NSAMPLES), 8055, NSAMPLES, 0.3),
-              ("ns1", chunk(100, 1), 100, 1, 0.15)]
+    shapes = [("slice", 100, NSAMPLES, 0.15), ("long", 8055, NSAMPLES, 0.3),
+              ("full", 20099, NSAMPLES, 1.5), ("ns1", 100, 1, 0.15)]
     out = {}
-    for i, (name, C, n_t, ns, window) in enumerate(shapes):
-        args, offs, wgts = _chunk_inputs(torch, C, n_t, ns, window, seed=i)
-        kern = chi2_core.chi2_supersampled(*args, offs=offs, wgts=wgts)
-        plain = chi2_core.chi2_supersampled_plain(*args, offs=offs,
-                                                  wgts=wgts)
-        torch.cuda.synchronize()
-        inv = 1.0 / (2.0 * SIGMA_GATE ** 2)
-        lnL_k = (-kern.double() * inv).cpu().numpy()
-        lnL_p = (-plain.double() * inv).cpu().numpy()
-        check(np.array_equal(np.isfinite(lnL_k), np.isfinite(lnL_p)),
-              f"{name}: finite masks differ")
-        d = np.abs(lnL_k - lnL_p)
-        near = lnL_p > lnL_p.max() - 50.0 if name == "long" else slice(None)
-        p99, dmax = float(np.quantile(d[near], 0.99)), float(d[near].max())
-        check(p99 < 0.05 and dmax < 1.0,
-              f"{name}: lnL diff p99 {p99} max {dmax}")
-        if name == "long":
-            rel = d / (np.abs(lnL_p) + 1.0)
-            check(np.quantile(rel, 0.99) < 1e-3 and rel.max() < 2e-2,
-                  f"{name}: relative lnL diff {np.quantile(rel, 0.99)}, "
-                  f"{rel.max()}")
-        dz = abs(float(log_mean_exp_torch(torch.as_tensor(lnL_k), C))
-                 - float(log_mean_exp_torch(torch.as_tensor(lnL_p), C)))
-        check(dz < 1e-2, f"{name}: lnZ differs by {dz}")
-        ms = _median_ms(torch, lambda: chi2_core.chi2_supersampled(
-            *args, offs=offs, wgts=wgts))
-        plain_ms = _median_ms(torch, lambda: chi2_core.chi2_supersampled_plain(
-            *args, offs=offs, wgts=wgts))
-        print(f"phase 3: {name} C={C} n_t={n_t} nodes={len(offs)}: lnL diff "
-              f"p99 {p99:.3g} max {dmax:.3g}, lnZ diff {dz:.3g}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
-        out[name] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms)
+    for i, (name, n_t, ns, window) in enumerate(shapes):
+        C2 = chunk(n_t, ns, chi2_core.DRAW_TILE)
+        C3 = chunk(n_t, ns, chi2_core.DRAW_LANES)
+        args, offs, wgts = _chunk_inputs(torch, C2, n_t, ns, window, seed=i)
+        # v3's chunk is the first C3 <= C2 draws of the same inputs
+        args3 = tuple(a[:C3] for a in args[:9]) + (args[9],)
+        row = {}
+        for kname, C, a, fn in (
+                ("chi2_supersampled", C2, args, chi2_core.chi2_supersampled),
+                ("chi2_supersampled_v3", C3, args3,
+                 chi2_core.chi2_supersampled_v3)):
+            kern = fn(*a, offs=offs, wgts=wgts)
+            plain = chi2_core.chi2_supersampled_plain(*a, offs=offs,
+                                                      wgts=wgts)
+            torch.cuda.synchronize()
+            p99, dmax, dz = _gate(torch, f"{name} {kname}", kern, plain, C)
+            if kname == "chi2_supersampled":
+                ms = _median_ms(torch, lambda: fn(*a, offs=offs, wgts=wgts))
+                extra = ""
+                tr_ms = None
+            else:
+                planes = chi2_core.time_major(*a[:4])
+                ms = _median_ms(torch, lambda: chi2_core.launch_v3(
+                    planes, *a[4:], offs=offs, wgts=wgts))
+                tr_ms = _median_ms(torch, lambda: chi2_core.time_major(
+                    *a[:4]))
+                extra = f", transpose {tr_ms:.4f} ms"
+            plain_ms = _median_ms(
+                torch, lambda: chi2_core.chi2_supersampled_plain(
+                    *a, offs=offs, wgts=wgts), reps=5)
+            bound_ms, bound_by, share = chi2_bound(torch, a, offs)
+            print(f"phase 3: {name} {kname} C={C} n_t={n_t} "
+                  f"nodes={len(offs)}: lnL diff p99 {p99:.3g} max "
+                  f"{dmax:.3g}, lnZ diff {dz:.3g}; kernel {ms:.4f} ms"
+                  f"{extra}, plain {plain_ms:.4f} ms (medians); bound "
+                  f"{bound_ms:.4f} ms ({bound_by}, {share:.4f} of points "
+                  f"in transit)")
+            row[kname] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              transpose_ms=tr_ms)
+        out[name] = row
     return out
 
 
@@ -215,50 +288,120 @@ def toi465_field():
     return pd.DataFrame(rows), time_, flux, sigma, P
 
 
-def phase_slice(torch, chi2_core, tr):
+def phase_slice(torch, chi2_core, tr, workdir):
+    """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
+    stars. Returns each kernel's launches in its own main-path run."""
+    from triceratops_tpu_torch.ops import lightcurve
+    from triceratops_tpu_torch.populations.synthetic import (
+        make_synthetic_trilegal)
+
     stars, time_, flux, sigma, P = toi465_field()
-    t = tr.target.from_stars(stars, ID=465, sectors=[1])
+    tri = make_synthetic_trilegal(f"{workdir}/trilegal.csv", Tmag_target=9.7,
+                                  n_stars=3000, seed=42)
+    t = tr.target.from_stars(stars, ID=465, sectors=[1], trilegal_fname=tri)
     t.calc_depths(tdepth=0.0026)
     td = t.stars["tdepth"].values
     check(((td > 0) & (td <= 1)).all(), f"tdepths {td}: a star drops out")
 
-    def run(seed, backend="auto"):
+    def run(seed, backend="auto"):  # one calc_probs call; its wall in s
         t0 = time.perf_counter()
         t.calc_probs(time_, flux, sigma, P_orb=P, N=N_DRAWS,
-                     nsamples=NSAMPLES, drop_scenario=UNPORTED, verbose=0,
-                     key=seed, device="cuda", backend=backend)
+                     nsamples=NSAMPLES, verbose=0, key=seed, device="cuda",
+                     backend=backend)
         return time.perf_counter() - t0
 
-    chi2_core.launches = 0
-    wall0 = run(1)
-    launches = chi2_core.launches
-    lnZ, probs = t.lnZ.copy(), t.probs["prob"].to_numpy()
-    print(f"phase 4: calc_probs N={N_DRAWS} nsamples={NSAMPLES}: "
-          f"{wall0:.3f} s (first call), {launches} kernel launches, "
-          f"FPP {t.FPP:.6g}, NFPP {t.NFPP:.6g}")
-    print("phase 4: lnZ " + ", ".join(
-        f"{s}={v:.4f}" for s, v in zip(t.probs["scenario"].values[LIVE_ROWS],
-                                       lnZ[LIVE_ROWS])))
-    check(launches > 0, "the kernel was not launched on the main path")
-    check(np.isfinite(lnZ[LIVE_ROWS]).all(), f"non-finite lnZ {lnZ}")
-    check(abs(probs.sum() - 1.0) < 1e-6, f"probabilities sum {probs.sum()}")
-    check(0.0 <= t.FPP <= 1.0, f"FPP {t.FPP}")
-    check(int(np.argmax(probs)) == 0, "TP is not the most probable row")
+    def counts():
+        return chi2_core.launches, chi2_core.launches_v3
 
-    chi2_core.launches = 0
+    def reset():
+        chi2_core.launches = chi2_core.launches_v3 = 0
+
+    reset()
+    wall0 = run(1)
+    launches, launches_v3 = counts()
+    lnZ, probs = t.lnZ.copy(), t.probs["prob"].to_numpy()
+    names = t.probs["scenario"].values
+    print(f"phase 4: calc_probs N={N_DRAWS} nsamples={NSAMPLES}, "
+          f"{len(lnZ)} rows: {wall0:.3f} s (first call), {launches} v2 "
+          f"kernel launches, {launches_v3} v3; FPP {t.FPP:.6g}, "
+          f"NFPP {t.NFPP:.6g}")
+    print("phase 4: lnZ " + ", ".join(
+        f"{n}={v:.4f}" for n, v in zip(names, lnZ)))
+    check(launches > 0, "the v2 kernel was not launched on the main path")
+    check(len(lnZ) == 21, f"{len(lnZ)} rows, expected 21")
+    check(np.isfinite(lnZ).all(), f"non-finite lnZ {lnZ}")
+    check(abs(probs.sum() - 1.0) < 1e-6, f"probabilities sum {probs.sum()}")
+    check(0.0 <= t.FPP <= 1.0 and 0.0 <= t.NFPP <= 1.0,
+          f"FPP {t.FPP}, NFPP {t.NFPP}")
+    check(int(np.argmax(probs)) == 0,
+          f"TP is not the most probable row: {names[np.argmax(probs)]}")
+
+    reset()
     wall_plain = run(1, backend="torch")
-    check(chi2_core.launches == 0, "the plain path launched the kernel")
-    dz = np.abs(t.lnZ[LIVE_ROWS] - lnZ[LIVE_ROWS])
-    print(f"phase 5: plain torch path (same seed) {wall_plain:.3f} s; "
-          f"per-row |lnZ kernel - lnZ plain| max {dz.max():.3g}")
+    check(counts() == (0, 0), "the plain path launched a kernel")
+    dz = np.abs(t.lnZ - lnZ)
+    print(f"phase 5: plain torch path (same seed, N={N_DRAWS}) "
+          f"{wall_plain:.3f} s; per-row |lnZ kernel - lnZ plain| max "
+          f"{dz.max():.3g}")
     check(dz.max() < 1e-2, f"kernel and plain lnZ differ: {dz}")
 
+    lightcurve.CHI2_SCHEDULE = "3"
+    try:
+        reset()
+        wall_v3 = run(1)
+        v2_in_v3, launches_v3 = counts()
+        dz3 = np.abs(t.lnZ - lnZ)
+        wall_v3_warm = run(5)
+    finally:
+        lightcurve.CHI2_SCHEDULE = "2"
+    print(f"phase v3: same seed under the v3 schedule {wall_v3:.3f} s, "
+          f"warm (seed 5) {wall_v3_warm:.4f} s; {launches_v3} v3 kernel "
+          f"launches, {v2_in_v3} v2; per-row |lnZ v3 - lnZ v2| max "
+          f"{dz3.max():.3g}")
+    check(launches_v3 > 0, "the v3 kernel was not launched")
+    check(v2_in_v3 == 0, "the v2 kernel launched under the v3 schedule")
+    check(dz3.max() < 1e-2, f"v3 and v2 lnZ differ: {dz3}")
+
+    torch.cuda.reset_peak_memory_stats()
     walls = [run(seed) for seed in (2, 3, 4)]
     med = float(np.median(walls))
-    print(f"phase 6: warm calc_probs walls {[round(w, 4) for w in walls]} s, "
-          f"median {med:.4f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    print(f"phase 6: warm calc_probs walls {walls} s, median {med:.4f} s; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return (launches, launches_v3), run
+
+
+def phase_profile(torch, run):
+    """One warm call per path under torch.profiler (CPU + CUDA), beside an
+    unprofiled warm call of the same path: device time, the device's idle
+    share against the unprofiled wall, CUDA kernel count, host self time
+    and the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    for backend in ("auto", "torch"):
+        wall = run(6, backend)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_prof = run(6, backend)
+        ka = prof.key_averages()
+        device_ms = sum(dev_us(e) for e in ka) / 1e3
+        host_ms = sum(e.self_cpu_time_total for e in ka) / 1e3
+        n_kernels = sum(1 for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        chi2 = [e for e in ka if "chi2_kernel" in e.key]
+        top = sorted(ka, key=dev_us, reverse=True)[:8]
+        print(f"profile {backend}: warm wall {wall:.4f} s unprofiled, "
+              f"{wall_prof:.4f} s profiled; device time {device_ms:.1f} ms, "
+              f"idle share {1.0 - device_ms / (1e3 * wall):.3f}; "
+              f"{n_kernels} CUDA kernels; host self time {host_ms:.1f} ms")
+        for e in chi2 + top:
+            print(f"profile {backend}:   {e.key[:60]}: {e.count} calls, "
+                  f"{dev_us(e) / 1e3:.2f} ms device")
 
 
 def main():
@@ -274,18 +417,32 @@ def main():
         phase_device(torch)
         build_s = phase_build(chi2_core)
         timing = phase_kernel(torch, chi2_core)
-        launches = phase_slice(torch, chi2_core, tr)
+        with tempfile.TemporaryDirectory() as workdir:
+            launches, run = phase_slice(torch, chi2_core, tr, workdir)
+            if "--profile" in sys.argv[1:]:
+                phase_profile(torch, run)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    slice_t = timing["slice"]
-    print(json.dumps({"kernels": [{
-        "name": "chi2_supersampled", "route": "cuda",
-        "source": "triceratops_tpu_torch/csrc/chi2_supersampled.cu",
-        "replaces": "triceratops_tpu/ops/pallas_core.py:120",
-        "launches": launches, "max_abs_err": slice_t["max_abs_err"],
-        "ms": slice_t["ms"], "plain_ms": slice_t["plain_ms"],
-        "build_s": build_s}]}))
+    # each kernel at the main path's chunk shape (16384 x 100, GL-4);
+    # no single PyTorch call computes this function, so no library time
+    kernels = []
+    for (name, replaces), n in zip(
+            (("chi2_supersampled", "triceratops_tpu/ops/pallas_core.py:120"),
+             ("chi2_supersampled_v3",
+              "triceratops_tpu/ops/pallas_core.py:267")), launches):
+        k = timing["slice"][name]
+        row = {"name": name, "route": "cuda",
+               "source": "triceratops_tpu_torch/csrc/chi2_supersampled.cu",
+               "replaces": replaces, "launches": n,
+               "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+               "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"], "library_ms": None,
+               "build_s": build_s}
+        if k["transpose_ms"] is not None:
+            row["transpose_ms"] = k["transpose_ms"]
+        kernels.append(row)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
 """The kernel module (ops/chi2_core.py) and the likelihood cores that feed
-it (ops/lightcurve.py), port vs the JAX Pallas kernel in interpret mode.
+it (ops/lightcurve.py), port vs the JAX Pallas kernels (the v2
+``chi2_supersampled`` and the time-major ``chi2_supersampled_v3``) in
+interpret mode.
 
 Tolerances are those of tests/test_pallas_core.py: per-draw lnL carries
 O(0.01-0.1) reordering noise when sigma is small (a ~1e-7 f32 rounding
@@ -7,6 +9,10 @@ difference in the deficit enters lnL as ~ D_err * resid / sigma^2), so
 the gates are lnL p99 < 0.05 and max < 1.0 absolute, identical finite
 masks, and lnZ within 1e-2 nats.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,11 +23,12 @@ from triceratops_tpu.core.numerics import log_mean_exp_jax
 from triceratops_tpu.ops import fastcore as jfc
 from triceratops_tpu.ops import lightcurve as jlc
 from triceratops_tpu.ops.pallas_core import chi2_supersampled as j_chi2
+from triceratops_tpu.ops.pallas_core import chi2_supersampled_v3 as j_chi2_v3
 from triceratops_tpu_torch.core.numerics import log_mean_exp_torch
 from triceratops_tpu_torch.ops import chi2_core
 from triceratops_tpu_torch.ops import lightcurve as tlc
 
-from test_torch_shared import f32, tf
+from test_torch_shared import REPO, f32, tf
 
 
 def _inputs(N=1024, n_t=40, seed=0):
@@ -90,6 +97,47 @@ class TestChi2Kernel:
         assert np.quantile(d, 0.99) < 0.05, np.quantile(d, 0.99)
         assert d.max() < 1.0, d.max()
 
+    @pytest.mark.parametrize("n_t", [50, 137])
+    @pytest.mark.parametrize("ns", [4, 1])
+    def test_v3_plain_matches_pallas_v3_interpret(self, n_t, ns):
+        """The v3 wrapper on CPU tensors (the plain version) against the
+        Pallas v3 kernel in interpret mode, C = 256, with the gates above;
+        n_t = 137 is not a multiple of the kernel's 8-row time blocks."""
+        arrs, offs, wgts = _chi2_inputs(ns, C=256, n_t=n_t)
+        want = np.asarray(j_chi2_v3(*map(jnp.asarray, arrs), offs=offs,
+                                    wgts=wgts, interpret=True))
+        before = chi2_core.launches_v3
+        got = chi2_core.chi2_supersampled_v3(
+            *map(torch.as_tensor, arrs), offs=offs, wgts=wgts).numpy()
+        assert chi2_core.launches_v3 == before
+        d = np.abs(got.astype(np.float64) - want) / (2 * 5e-4 ** 2)
+        assert np.quantile(d, 0.99) < 0.05, np.quantile(d, 0.99)
+        assert d.max() < 1.0, d.max()
+
+    def test_v3_wrapper_checks(self):
+        """v3 takes C a multiple of 128 where v2 needs 256, with the same
+        checks otherwise; both give the plain result on the CPU."""
+        C, n_t = 128, 40
+        shapes = [(C, n_t)] * 4 + [(C, 18)] * 3 + [(C, 5), (C, 1), (1, n_t)]
+        t = [torch.rand(s) for s in shapes]
+        offs, wgts = (0.0,), (1.0,)
+        want = chi2_core.chi2_supersampled_plain(*t, offs=offs, wgts=wgts)
+        got = chi2_core.chi2_supersampled_v3(*t, offs=offs, wgts=wgts)
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="multiple of 256"):
+            chi2_core.chi2_supersampled(*t, offs=offs, wgts=wgts)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            chi2_core.chi2_supersampled_v3(*(x[:64] for x in t[:9]), t[9],
+                                           offs=offs, wgts=wgts)
+        with pytest.raises(TypeError, match="float32"):
+            chi2_core.chi2_supersampled_v3(t[0].double(), *t[1:], offs=offs,
+                                           wgts=wgts)
+        with pytest.raises(ValueError, match="offsets"):
+            chi2_core.chi2_supersampled_v3(*t, offs=(), wgts=())
+        planes = chi2_core.time_major(*t[:4])
+        assert all(p.shape == (n_t, C) and p.is_contiguous() for p in planes)
+        assert torch.equal(planes[0], t[0].t())
+
     def test_wrapper_rejects_bad_inputs(self):
         C, n_t = 256, 40
         shapes = [(C, n_t)] * 4 + [(C, 18)] * 3 + [(C, 5), (C, 1), (1, n_t)]
@@ -132,6 +180,77 @@ class TestChi2Kernel:
             wgts=tuple(map(float, wt)))
         d = ((kern - plain).abs().double() / (2 * 5e-4 ** 2)).cpu().numpy()
         assert np.quantile(d, 0.99) < 0.05 and d.max() < 1.0
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("n_t,ns", [(100, 20), (137, 1)])
+    def test_v3_kernel_matches_plain_on_card(self, n_t, ns, monkeypatch):
+        """On the card: the v3 CUDA kernel against the plain version on the
+        same CUDA tensors (C = 16384; n_t = 137 ends in a partial time
+        block), with the lnL-scale gates above."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        monkeypatch.setattr(tlc, "CHI2_SCHEDULE", "3")
+        a = _inputs(N=16384, n_t=n_t, seed=2)
+        time, obs, k, P, aR, inc, e, w, u1, u2, g = (
+            torch.as_tensor(x, device="cuda") for x in a)
+        before = chi2_core.launches_v3, chi2_core.launches
+        kern = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1,
+                               u2, g, n_t, ns)
+        assert (chi2_core.launches_v3, chi2_core.launches) == (
+            before[0] + 1, before[1])
+        from triceratops_tpu_torch.ops.fastcore import deficit_coeffs
+        from triceratops_tpu_torch.core.kepler import projected_z
+        cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
+        if ns > 1:
+            from triceratops_tpu_torch.ops.fastcore import exposure_z2_poly
+            q0, q1, q2, front = exposure_z2_poly(time, 0.00139 / 2, P, aR,
+                                                 inc, e, w)
+            o, wt = tlc._gl_exposure_nodes(0.00139, ns)
+        else:
+            z, front = projected_z(time[None, :], 0.0, P[:, None],
+                                   aR[:, None], inc[:, None], e[:, None],
+                                   w[:, None])
+            q0, q1, q2 = z * z, torch.zeros_like(z), torch.zeros_like(z)
+            o, wt = np.zeros(1, np.float32), np.ones(1, np.float32)
+        plain = chi2_core.chi2_supersampled_plain(
+            q0, q1, q2, front.float(), cA, cB1, cB2, torch.stack(segs, 1),
+            g[:, None], obs[None, :], offs=tuple(map(float, o)),
+            wgts=tuple(map(float, wt)))
+        d = ((kern - plain).abs().double() / (2 * 5e-4 ** 2)).cpu().numpy()
+        assert np.quantile(d, 0.99) < 0.05 and d.max() < 1.0
+
+
+class TestSchedule:
+    def test_env_selects_v3_at_import(self):
+        """TRICERATOPS_PALLAS_V is read once, when ops/lightcurve.py is
+        imported, as the JAX package reads it."""
+        code = ("from triceratops_tpu_torch.ops import lightcurve as lc\n"
+                "print(lc.CHI2_SCHEDULE, lc._kernel_chunk(300))\n")
+        outs = []
+        for v in ("3", None):
+            env = {k: x for k, x in os.environ.items()
+                   if k != "TRICERATOPS_PALLAS_V"}
+            if v:
+                env["TRICERATOPS_PALLAS_V"] = v
+            res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                                 env=env, capture_output=True, text=True,
+                                 timeout=120)
+            assert res.returncode == 0, res.stderr
+            outs.append(res.stdout.split())
+        assert outs == [["3", "384"], ["2", "512"]]
+
+    def test_v3_schedule_gives_the_same_lnL(self, monkeypatch):
+        """On the CPU both schedules run the plain version, so lnL_planet
+        is the same; v3 rounds the chunk to a multiple of 128."""
+        a = _inputs(N=640, seed=7)
+        kw = dict(exptime=0.00139, n_t=40, ns=4, chunk=300)
+        args = _lnL_args(a, torch.ones(640, dtype=torch.bool),
+                         torch.as_tensor)
+        want = tlc.lnL_planet(*args, **kw)
+        monkeypatch.setattr(tlc, "CHI2_SCHEDULE", "3")
+        assert tlc._kernel_chunk(300) == 384
+        got = tlc.lnL_planet(*args, **kw)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 class TestLikelihoodCores:

@@ -11,6 +11,12 @@ at trace time. ``shared_uniforms`` patches
 test-local copy whose only change is the source of its permutation
 uniforms) and the port's ``engine._uniforms``; nothing in either package
 changes.
+
+Star and MOLUSC-row indices are drawn the same way on both sides: as
+floor(u * hi) from numpy uniforms keyed by the draw count, through
+``jax.random.randint`` (patched for the test's duration; ``hi`` may be a
+traced value inside the jitted samplers) and the port's
+``engine._randint`` seam.
 """
 
 import os
@@ -51,6 +57,26 @@ def uniforms_np(n_streams, N):
     return [rng.random(N, dtype=np.float32) for _ in range(n_streams)]
 
 
+def index_uniforms_np(n):
+    """float32 U[0, 1) array of length n for index draws, keyed by n."""
+    return np.random.default_rng([4321, n]).random(n, dtype=np.float32)
+
+
+def _jax_randint(key, shape, minval, maxval, dtype=None):
+    """jax.random.randint stand-in: floor(u * maxval) in float32, clipped
+    to [minval, maxval - 1]; maxval may be traced."""
+    del key, dtype
+    hi = jnp.asarray(maxval)
+    u = jnp.asarray(index_uniforms_np(shape[0]))
+    idx = jnp.floor(u * hi.astype(jnp.float32)).astype(jnp.int32)
+    return jnp.clip(idx, minval, hi - 1)
+
+
+def _torch_randint(gen, n, hi):
+    u = torch.as_tensor(index_uniforms_np(n))
+    return torch.clamp(torch.floor(u * float(hi)).long(), 0, int(hi) - 1)
+
+
 def _jax_lattice_strat(u, axes, n, key):
     """triceratops_tpu.scenarios.engine._lattice_strat with its
     permutation uniforms taken from ``uniforms_np``."""
@@ -78,19 +104,32 @@ def shared_uniforms(monkeypatch):
     monkeypatch.setattr(
         teng, "_uniforms",
         lambda gen, n, N: [torch.as_tensor(a) for a in uniforms_np(n, N)])
+    monkeypatch.setattr(jax.random, "randint", _jax_randint)
+    monkeypatch.setattr(teng, "_randint", _torch_randint)
     yield
     monkeypatch.undo()
     jax.clear_caches()
 
 
+def test_shared_index_draws(shared_uniforms):
+    """The patched index draws agree between the packages, stay in
+    [0, hi) and accept a traced hi, as DTP's max(N_comp - 1, 1) is."""
+    want = np.asarray(jax.jit(lambda hi: jax.random.randint(
+        jax.random.key(0), (4096,), 0, jnp.maximum(hi - 1, 1)))(300))
+    got = teng._randint(torch.Generator(), 4096, 299).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.min() == 0 and got.max() == 298
+
+
 def test_import_without_jax():
-    """The port imports torch, numpy and scipy only: importing it with
+    """The port imports torch, numpy, scipy and pandas only: importing it with
     jax made unimportable succeeds and pulls in no triceratops_tpu
     module."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import triceratops_tpu_torch, triceratops_tpu_torch.triceratops\n"
+        "import triceratops_tpu_torch.populations.synthetic\n"
         "bad = [m for m in sys.modules if m == 'triceratops_tpu' or "
         "m.startswith('triceratops_tpu.')]\n"
         "assert not bad, bad\n"

@@ -1,7 +1,8 @@
-"""The port's slice as a whole: target.from_stars -> calc_depths ->
-calc_probs on a target plus two nearby stars (rows TP, EB, EBx2P and
-NTP, NEB, NEBx2P for each neighbour), with the unported rows dropped,
-against the JAX package on shared uniforms."""
+"""The port as a whole: target.from_stars -> calc_depths -> calc_probs on
+a target plus two nearby stars, against the JAX package on shared
+uniforms and star indices: the 9 target / nearby-star TP and EB rows with
+the companion rows dropped, and every one of the 21 rows with a TRILEGAL
+field, with and without a contrast curve and a MOLUSC file."""
 
 import numpy as np
 import pandas as pd
@@ -12,6 +13,7 @@ from triceratops_tpu import target as jtarget
 from triceratops_tpu_torch import target as ttarget
 
 from test_torch_shared import shared_uniforms  # noqa: F401
+from test_torch_companions import cc_file, molusc_file  # noqa: F401
 
 UNPORTED = ["PTP", "PEB", "STP", "SEB"]
 LIVE_ROWS = [0, 1, 2, 15, 16, 17, 18, 19, 20]
@@ -92,19 +94,59 @@ def test_calc_probs_matches_reference(importance_sampling, top_two_gaps):
                                        err_msg=f"row {row}")
 
 
-def test_calc_probs_requires_dropping_unported_rows():
+@pytest.fixture
+def trilegal(tmp_path):
+    from triceratops_tpu_torch.populations.synthetic import (
+        make_synthetic_trilegal)
+    return make_synthetic_trilegal(tmp_path / "tri.csv", Tmag_target=10.0,
+                                   n_stars=300, seed=3)
+
+
+@pytest.mark.usefixtures("shared_uniforms")
+@pytest.mark.parametrize("constrained", [False, True])
+def test_calc_probs_all_rows_match_reference(constrained, trilegal, cc_file,
+                                             molusc_file):
+    """All 21 rows (15 target rows with a 300-star TRILEGAL field, NTP /
+    NEB / NEBx2P for two nearby stars); constrained: with a K-band
+    contrast curve and a MOLUSC file."""
+    time, flux, sigma = _curve()
+    kw = dict(N=4096, nsamples=4, verbose=0)
+    if constrained:
+        kw.update(contrast_curve_file=cc_file, filt="K",
+                  molusc_file=molusc_file)
+    ref = jtarget.from_stars(_stars(), ID=1000, trilegal_fname=trilegal)
+    ref.calc_depths(tdepth=0.005)
+    ref.calc_probs(time, flux, sigma, P_orb=3.0, key=0, **kw)
+    port = ttarget.from_stars(_stars(), ID=1000, trilegal_fname=trilegal)
+    port.calc_depths(tdepth=0.005)
+    port.calc_probs(time, flux, sigma, P_orb=3.0, key=0, device="cpu", **kw)
+
+    assert list(port.probs["scenario"]) == list(ref.probs["scenario"])
+    assert np.isfinite(ref.lnZ).all()
+    np.testing.assert_allclose(port.lnZ, ref.lnZ, atol=1e-2, rtol=0)
+    assert abs(port.FPP - ref.FPP) < 1e-3
+    assert abs(port.NFPP - ref.NFPP) < 1e-3
+    np.testing.assert_array_equal(port.star_num, ref.star_num)
+
+
+def test_calc_probs_without_trilegal_runs_every_other_row():
+    """No row needs dropping: without a TRILEGAL file the six background
+    rows get zero weight and every other row runs."""
     t = ttarget.from_stars(_stars(), ID=1000)
     t.calc_depths(tdepth=0.005)
     time, flux, sigma = _curve()
-    with pytest.raises(NotImplementedError,
-                       match="PTP, PEB, PEBx2P, STP, SEB, SEBx2P"):
-        t.calc_probs(time, flux, sigma, P_orb=3.0, N=256, device="cpu",
-                     verbose=0)
-    # with a TRILEGAL file the background rows would run too
-    t.trilegal_fname = "trilegal.csv"
-    with pytest.raises(NotImplementedError, match="DTP, DEB, DEBx2P"):
-        t.calc_probs(time, flux, sigma, P_orb=3.0, N=256, device="cpu",
-                     verbose=0, drop_scenario=UNPORTED)
+    t.calc_probs(time, flux, sigma, P_orb=3.0, N=1024, nsamples=4,
+                 device="cpu", verbose=0, key=1)
+    background = [9, 10, 11, 12, 13, 14]
+    assert list(t.probs["scenario"][background]) == [
+        "DTP", "DEB", "DEBx2P", "BTP", "BEB", "BEBx2P"]
+    assert np.isneginf(t.lnZ[background]).all()
+    assert (t.probs["prob"][background] == 0).all()
+    others = np.setdiff1d(np.arange(21), background)
+    assert not np.isnan(t.lnZ[others]).any()
+    assert np.isfinite(t.lnZ[[0, 1, 3, 6, 15, 18]]).all()
+    assert abs(t.probs["prob"].sum() - 1.0) < 1e-9
+    assert 0.0 <= t.FPP <= 1.0 and 0.0 <= t.NFPP <= 1.0
 
 
 def test_calc_probs_before_calc_depths_raises():

@@ -1,22 +1,25 @@
 """triceratops_tpu_torch: the PyTorch / CUDA port of the JAX package.
 
 Bayesian vetting of transiting-planet candidates (TRICERATOPS, Giacalone
-et al. 2021, AJ 161, 24) on an NVIDIA GPU. This package ports the
-target's TP, EB and EBx2P rows and every nearby star's NTP, NEB and
-NEBx2P rows; the JAX package beside it is the reference it is
-tested against. It imports torch, numpy and scipy, never jax.
+et al. 2021, AJ 161, 24) on an NVIDIA GPU. This package runs every row
+of ``calc_probs``: the target's 15 (planet, eclipsing binary, bound
+companion and TRILEGAL background scenarios) and every nearby star's NTP,
+NEB and NEBx2P; the JAX package beside it is the reference it is tested
+against. It imports torch, numpy, scipy and pandas, never jax.
 
 Usage::
 
     import triceratops_tpu_torch.triceratops as tr
-    t = tr.target.from_stars(stars_df)
+    t = tr.target.from_stars(stars_df, trilegal_fname=trilegal_csv)
     t.calc_depths(tdepth)
-    t.calc_probs(time, flux, flux_err, P_orb, drop_scenario=[...],
-                 device="cuda")
+    t.calc_probs(time, flux, flux_err, P_orb, device="cuda")
     t.FPP, t.NFPP
 """
 
 from .frontend.target import target  # noqa: F401
-from .scenarios.api import lnZ_TTP, lnZ_TEB  # noqa: F401
+from .scenarios.api import (  # noqa: F401
+    lnZ_TTP, lnZ_TEB, lnZ_PTP, lnZ_PEB, lnZ_STP, lnZ_SEB, lnZ_DTP, lnZ_DEB,
+    lnZ_BTP, lnZ_BEB,
+)
 
 __version__ = "0.1.0"

@@ -1,13 +1,13 @@
-"""The ``target`` user-facing class for the ported slice.
+"""The ``target`` user-facing class.
 
 Counterpart of the JAX package's ``frontend/target.py``: offline
 construction (``from_stars``), PSF dilution depths (``calc_depths``) and
-scenario orchestration into FPP/NFPP (``calc_probs``). The port runs the
-target's TP, EB and EBx2P rows and every nearby star's NTP, NEB and NEBx2P
-rows on the device. The other target rows (bound companions and
-background stars) are not ported yet: ``calc_probs`` raises unless they
-are in ``drop_scenario``; dropped rows get lnZ = -inf, and without a
-TRILEGAL file the background rows get zero weight as in the reference.
+scenario orchestration into FPP/NFPP (``calc_probs``). ``calc_probs`` runs
+the target's 15 rows (TP, EB, EBx2P, the bound-companion PTP, PEB, PEBx2P,
+STP, SEB, SEBx2P and the background DTP, DEB, DEBx2P, BTP, BEB, BEBx2P)
+and every nearby star's NTP, NEB and NEBx2P rows on the device. Dropped
+rows get lnZ = -inf; without a TRILEGAL file the background rows get zero
+weight, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,17 +25,6 @@ from ..scenarios import api as sc
 
 _RES_FIELDS = ["M_s", "R_s", "u1", "u2", "P_orb", "inc", "b", "R_p", "ecc",
                "argp", "M_EB", "R_EB", "fluxratio_EB", "fluxratio_comp"]
-
-# target-star rows not ported yet: (drop_scenario name, the rows it
-# fills, first row index, star_num, whether it runs only with a TRILEGAL
-# file)
-_UNPORTED = (
-    ("PTP", ("PTP",), 3, 1, False), ("PEB", ("PEB", "PEBx2P"), 4, 1, False),
-    ("STP", ("STP",), 6, 2, False), ("SEB", ("SEB", "SEBx2P"), 7, 2, False),
-    ("DTP", ("DTP",), 9, 1, True), ("DEB", ("DEB", "DEBx2P"), 10, 1, True),
-    ("BTP", ("BTP",), 12, 2, True), ("BEB", ("BEB", "BEBx2P"), 13, 2, True),
-)
-
 
 class target:
     def __init__(self, *args, **kwargs):
@@ -130,41 +119,33 @@ class target:
                       "(in K) are not added to the .stars dataframe, Solar "
                       "values will be assumed.")
 
-    def _unported(self, drop_scenario):
-        """Unported target rows that would have to run, by name."""
-        return [row for name, rows, _, _, bg in _UNPORTED
-                if name not in drop_scenario
-                and (self.trilegal_fname or not bg) for row in rows]
-
     def calc_probs(self, time: np.ndarray, flux_0: np.ndarray,
-                   flux_err_0: float, P_orb, N: int = 1000000,
+                   flux_err_0: float, P_orb, contrast_curve_file: str = None,
+                   filt: str = "TESS", N: int = 1000000,
                    parallel: bool = False, drop_scenario: list = (),
                    verbose: int = 1, flatpriors: bool = False,
-                   exptime: float = 0.00139, nsamples: int = 20, key=None,
+                   exptime: float = 0.00139, nsamples: int = 20,
+                   molusc_file: str = None, key=None,
                    importance_sampling: bool = True,
                    lc_window: float = None, device="cuda",
                    backend: str = "auto"):
         """Scenario probabilities, FPP and NFPP (reference
-        triceratops.py:673-1485) for the ported rows.
+        triceratops.py:673-1485).
 
+        ``contrast_curve_file`` / ``filt``: a 2-column (arcsec, delta mag)
+        csv and its band, which bound the companion and background priors.
+        ``molusc_file``: a MOLUSC posterior replacing the analytic
+        companion draw of PTP, PEB, STP and SEB.
         ``key``: None, an int seed, or a ``torch.Generator`` on ``device``.
         ``device``: where the Monte-Carlo work runs (default "cuda").
         ``backend``: likelihood path, "auto" (the fused chi^2 kernel on
         CUDA) or "torch" (plain torch). ``lc_window`` (days) crops the
-        folded curve to |time| <= lc_window. The rows PTP, PEB, STP and
-        SEB (and DTP, DEB, BTP, BEB with a TRILEGAL file) are not ported:
-        they must be in ``drop_scenario``, or this raises
-        NotImplementedError."""
+        folded curve to |time| <= lc_window."""
         if "tdepth" not in self.stars.columns:
             raise RuntimeError(
                 "calc_depths(tdepth, ...) must be called before "
                 "calc_probs so each star's flux ratio and required "
                 "transit depth are known.")
-        missing = self._unported(drop_scenario)
-        if missing:
-            raise NotImplementedError(
-                "Scenarios not ported to triceratops_tpu_torch yet: "
-                + ", ".join(missing) + ". Pass them in drop_scenario.")
         mask = ~np.isnan(time) & ~np.isnan(flux_0)
         if lc_window is not None:
             mask &= np.abs(np.asarray(time)) <= float(lc_window)
@@ -208,12 +189,17 @@ class target:
             R_s = filtered["rad"].values[i]
             Teff = filtered["Teff"].values[i]
             plx = filtered["plx"].values[i]
+            Tmag, Jmag, Hmag, Kmag = (filtered[c].values[i] for c in
+                                      ("Tmag", "Jmag", "Hmag", "Kmag"))
             Z = 0.0
             base = dict(N=N, parallel=parallel, mission=self.mission,
                         flatpriors=flatpriors, exptime=exptime,
                         nsamples=nsamples,
                         importance_sampling=importance_sampling,
                         gen=gen, device=device, backend=backend)
+            cc = dict(contrast_curve_file=contrast_curve_file, filt=filt)
+            mol = dict(molusc_file=molusc_file)
+            bg = (Tmag, Jmag, Hmag, Kmag, self.trilegal_fname)
             if i == 0:
                 if (np.isnan(M_s) or np.isnan(R_s) or np.isnan(Teff)
                         or np.isnan(plx)):
@@ -222,29 +208,57 @@ class target:
                           "(in R_Sun), Teff (in K), and plx (in mas) are "
                           "provided in the .stars dataframe.")
                     break
-                if "TP" in drop_scenario:
-                    put(0, ID, "TP", 1)
-                else:
+
+                def log(name):
                     if verbose == 1:
-                        print(f"Calculating TP scenario probabilities for {ID}.")
-                    put(0, ID, "TP", 1, sc.lnZ_TTP(
-                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, **base))
-                if "EB" in drop_scenario:
-                    put(1, ID, "EB", 1)
-                    put(2, ID, "EBx2P", 1)
-                else:
-                    if verbose == 1:
-                        print("Calculating EB and EBx2P scenario "
-                              f"probabilities for {ID}.")
-                    res, res_t = sc.lnZ_TEB(time, flux, flux_err, P_orb, M_s,
-                                            R_s, Teff, Z, **base)
-                    put(1, ID, "EB", 1, res)
-                    put(2, ID, "EBx2P", 1, res_t)
-                # unported rows: dropped (checked above) or, for the
-                # background rows, zero weight without a TRILEGAL file
-                for _, rows, j, snum, _ in _UNPORTED:
-                    for off, row in enumerate(rows):
-                        put(j + off, ID, row, snum)
+                        print(f"Calculating {name} scenario probabilities "
+                              f"for {ID}.")
+
+                # (drop name, rows it fills, first row, star_num, needs a
+                # TRILEGAL file, evidence call)
+                rows = (
+                    ("TP", ("TP",), 0, 1, False, lambda: sc.lnZ_TTP(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z,
+                        **base)),
+                    ("EB", ("EB", "EBx2P"), 1, 1, False, lambda: sc.lnZ_TEB(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z,
+                        **base)),
+                    ("PTP", ("PTP",), 3, 1, False, lambda: sc.lnZ_PTP(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, plx,
+                        **cc, **base, **mol)),
+                    ("PEB", ("PEB", "PEBx2P"), 4, 1, False, lambda: sc.lnZ_PEB(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, plx,
+                        **cc, **base, **mol)),
+                    ("STP", ("STP",), 6, 2, False, lambda: sc.lnZ_STP(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, plx,
+                        **cc, **base, **mol)),
+                    ("SEB", ("SEB", "SEBx2P"), 7, 2, False, lambda: sc.lnZ_SEB(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, plx,
+                        **cc, **base, **mol)),
+                    ("DTP", ("DTP",), 9, 1, True, lambda: sc.lnZ_DTP(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, *bg,
+                        **cc, **base)),
+                    ("DEB", ("DEB", "DEBx2P"), 10, 1, True, lambda: sc.lnZ_DEB(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, *bg,
+                        **cc, **base)),
+                    ("BTP", ("BTP",), 12, 2, True, lambda: sc.lnZ_BTP(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, *bg,
+                        **cc, **base)),
+                    ("BEB", ("BEB", "BEBx2P"), 13, 2, True, lambda: sc.lnZ_BEB(
+                        time, flux, flux_err, P_orb, M_s, R_s, Teff, *bg,
+                        **cc, **base)),
+                )
+                for name, names, j, snum, needs_tri, run in rows:
+                    if name in drop_scenario or (needs_tri
+                                                 and not trilegal_ok):
+                        for off, row in enumerate(names):
+                            put(j + off, ID, row, snum)
+                        continue
+                    log(" and ".join(names))
+                    res = run()
+                    for off, row in enumerate(names):
+                        put(j + off, ID, row, snum,
+                            res if len(names) == 1 else res[off])
             else:
                 # nearby stars: solar fallbacks for missing properties
                 # (reference triceratops.py:1344-1363)

@@ -12,8 +12,10 @@ Paths per call:
 
 * ``backend="auto"`` (default, fast): the fused chi^2 of
   ``ops/chi2_core.py`` fed by the tabulated coefficients and the exposure
-  z^2 model. On a CUDA tensor that is the hand-written kernel, on a CPU
-  tensor its plain torch version.
+  z^2 model. On a CUDA tensor that is a hand-written kernel, on a CPU
+  tensor its plain torch version. ``CHI2_SCHEDULE`` picks the kernel: the
+  v2 schedule (default) or, with ``TRICERATOPS_PALLAS_V=3`` in the
+  environment when this module is imported, the time-major v3 one.
 * ``backend="torch"``: the unfused plain-torch fast path
   (``_mean_deficit_fast``), which materializes the deficit.
 * ``exact=True``: a full Kepler solve and exact kernel per supersample.
@@ -25,6 +27,7 @@ mask: excluded draws keep zero weight but count in N_total.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -40,6 +43,11 @@ from .occult import occult_quad_deficit
 SEC_GRID = np.linspace(-0.05, 0.05, 25)
 
 LN2PI = float(np.log(2.0 * np.pi))
+
+# chi^2 kernel schedule, read once at import as the JAX package reads its
+# Pallas schedule: "2" (chi2_core.chi2_supersampled) or "3"
+# (chi2_core.chi2_supersampled_v3)
+CHI2_SCHEDULE = os.environ.get("TRICERATOPS_PALLAS_V", "2")
 
 _GL_EXPO_MAX = 4
 
@@ -124,8 +132,9 @@ def _mean_deficit(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns,
 def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
                 n_t, ns):
     """chi^2 of one chunk straight from per-draw parameters through
-    ``chi2_core.chi2_supersampled`` (the kernel on CUDA, its plain version
-    on CPU)."""
+    ``chi2_core.chi2_supersampled`` or, under ``CHI2_SCHEDULE == "3"``,
+    ``chi2_core.chi2_supersampled_v3`` (a kernel on CUDA, the plain
+    version on CPU)."""
     cA, cB1, cB2, zsplit, zmid, invA, invB1, invB2 = deficit_coeffs(k, u1, u2)
     if ns > 1:
         q0, q1, q2, front = exposure_z2_poly(time, exptime / 2.0, P, a_R,
@@ -139,7 +148,9 @@ def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
         q2 = torch.zeros_like(q0)
         offs, wgt = np.zeros(1, np.float32), np.ones(1, np.float32)
     seg = torch.stack([zsplit, zmid, invA, invB1, invB2], dim=1)
-    return chi2_core.chi2_supersampled(
+    fn = (chi2_core.chi2_supersampled_v3 if CHI2_SCHEDULE == "3"
+          else chi2_core.chi2_supersampled)
+    return fn(
         q0.contiguous(), q1.contiguous(), q2.contiguous(),
         front.to(q0.dtype), cA.contiguous(), cB1.contiguous(),
         cB2.contiguous(), seg, g[:, None].contiguous(),
@@ -163,6 +174,13 @@ def _chunk_chi2(time, exptime, obs_dev, kc, Pc, ac, ic, ec, wc, u1c, u2c,
     return torch.sum(resid * resid, dim=1)
 
 
+def _kernel_chunk(chunk):
+    """The draw chunk rounded up to the selected kernel's draw multiple."""
+    tile = (chi2_core.DRAW_LANES if CHI2_SCHEDULE == "3"
+            else chi2_core.DRAW_TILE)
+    return -(-chunk // tile) * tile
+
+
 def _check_backend(backend):
     if backend not in ("auto", "torch"):
         raise ValueError(f"backend must be 'auto' or 'torch', got {backend!r}")
@@ -179,7 +197,7 @@ def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
     N = k.shape[0]
     inv_sig2, ln_sigma = _sigma_terms(sigma)
     if backend == "auto":
-        chunk = -(-chunk // chi2_core.DRAW_TILE) * chi2_core.DRAW_TILE
+        chunk = _kernel_chunk(chunk)
     parts = _pad_chunk([k, P, a_R, inc, e, w, u1, u2, g, mask], N, chunk)
     out = torch.empty((parts[0].shape[0], chunk), dtype=time.dtype,
                       device=time.device)
@@ -208,7 +226,7 @@ def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
     N = k.shape[0]
     inv_sig2, ln_sigma = _sigma_terms(sigma)
     if backend == "auto":
-        chunk = -(-chunk // chi2_core.DRAW_TILE) * chi2_core.DRAW_TILE
+        chunk = _kernel_chunk(chunk)
     sec_grid = torch.as_tensor(SEC_GRID, dtype=time.dtype, device=time.device)
     parts = _pad_chunk([k, ksec, P, a_R, inc, e, w, u1, u2, g_pri, g_sec,
                         mask], N, chunk)

@@ -9,7 +9,9 @@ short-period-binary priors (reference priors.py:16-383):
   Chebyshev PPF, Moe & Di Stefano power law for binaries;
 * ``sample_w``: uniform argument of periastron in degrees;
 * ``sample_q`` / ``q_below_twin_cdf``: Moe & Di Stefano short-period mass
-  ratios with twin excess, and P(q < 0.95) under that law.
+  ratios with twin excess, and P(q < 0.95) under that law;
+* ``sample_q_companion``: the long-period companion law of the same
+  family (weaker twin excess, steeper slope).
 """
 
 from __future__ import annotations
@@ -175,3 +177,8 @@ def q_below_twin_cdf(M_s, p1=0.3, p2=-0.5, F_twin=0.30):
 def sample_q(x, M_s):
     """Short-period binary mass ratios (F_twin = 0.30, p2 = -0.5)."""
     return _sample_q_generic(x, M_s, 0.3, -0.5, 0.30)
+
+
+def sample_q_companion(x, M_s):
+    """Long-period companion mass ratios (F_twin = 0.05, p2 = -0.95)."""
+    return _sample_q_generic(x, M_s, 0.3, -0.95, 0.05)

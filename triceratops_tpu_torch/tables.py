@@ -106,10 +106,10 @@ def beta_ppf_cheb():
 
 
 @lru_cache(maxsize=None)
-def ppoly_arrays(name: str):
-    """(breaks (n,), coefs (4, n-1)) float64 of the cubic interpolating
-    spline of one named relation."""
-    from scipy.interpolate import InterpolatedUnivariateSpline, PPoly
+def spline(name: str):
+    """The scipy cubic interpolating spline of one named relation (the
+    host evaluation of the reference, funcs.py:54-140)."""
+    from scipy.interpolate import InterpolatedUnivariateSpline
 
     nodes = {
         "torres_teff": (MASS_NODES_TORRES, TEFF_NODES_TORRES),
@@ -118,8 +118,16 @@ def ppoly_arrays(name: str):
         "cdwrf_rad": (MASS_NODES_CDWRF, RAD_NODES_CDWRF),
     }
     x, y = nodes[name] if name in nodes else FLUX_NODES[name]
-    spl = InterpolatedUnivariateSpline(x, y)
-    pp = PPoly.from_spline(spl._eval_args, extrapolate=True)
+    return InterpolatedUnivariateSpline(x, y)
+
+
+@lru_cache(maxsize=None)
+def ppoly_arrays(name: str):
+    """(breaks (n,), coefs (4, n-1)) float64 of the cubic interpolating
+    spline of one named relation."""
+    from scipy.interpolate import PPoly
+
+    pp = PPoly.from_spline(spline(name)._eval_args, extrapolate=True)
     return (np.asarray(pp.x, dtype=np.float64),
             np.asarray(pp.c, dtype=np.float64))
 
