@@ -3,22 +3,28 @@
 Drives the port's main path once at full size and checks it:
 
   1. requires CUDA and prints the card's name and power limit;
-  2. builds the chi^2 kernels (the v2 and the time-major v3 schedule, one
-     source) from csrc/ with nvcc and prints the build time;
-  3. compares each kernel with its plain torch version on the card at the
-     main path's chunk shape (16384 x 100, GL-4), at long-curve shapes
-     (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times
-     kernels, the v3 transpose and the plain version with CUDA events;
+  2. builds the chi^2 kernels (v2 and v3 schedules, each over z^2 planes
+     and over the orbit; one source) from csrc/ with nvcc and prints the
+     build time;
+  3. compares each of the four kernels with its plain torch version on the
+     card at the main path's shape (n_t = 100, GL-4), at long-curve shapes
+     (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times them
+     with CUDA events: the plane kernels at the old n_t-bound draw chunk,
+     the orbit kernels at the main path's chunk (lightcurve.orbit_chunk)
+     beside their yardstick, exposure_z2_poly plus the plane kernel on the
+     same draws (on the long curves both at the old chunk, where the
+     planes fit);
   4. runs target.from_stars -> calc_depths -> calc_probs(N = 1e6,
      nsamples = 20) on bench.py's configuration (a TOI-465-like target, a
      3000-star synthetic TRILEGAL field) plus two nearby stars: all 21
-     rows, v2 schedule; checks the result and that the v2 kernel launched;
+     rows, v2 schedule; checks the result and that only the v2 orbit
+     kernel launched;
   5. reruns the same seed on the plain torch path and compares per-row lnZ;
-  v3. reruns the same seed under the v3 schedule: the v3 kernel launched,
-     the v2 kernel did not, per-row lnZ as in 4; then one warm v3 call;
+  v3. reruns the same seed under the v3 schedule: only the v3 orbit kernel
+     launched, per-row lnZ as in 4; then one warm v3 call;
   6. times three warm calc_probs calls with different seeds (v2).
 
-Prints a JSON line with both kernels' numbers, then as its last line
+Prints a JSON line with the four kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
 CUDA card, and outside a checkout of the repository.
 
@@ -50,6 +56,16 @@ PEAK_FP32_S = 67e12
 # dilution and chi^2 update, 6
 FLOPS_NODE_POINT = 73
 FLOPS_POINT = 6
+# The orbit source (csrc/chi2_supersampled.cu), one operation per + - * /
+# and per sqrt, cbrt, sin, cos, atan2 or rint (so a floor: the IEEE
+# functions take several instructions each): per point the Kepler solve
+# (kepler_sc) 91 plus the Taylor z^2 model 73, or plus projected_z's 24 at
+# ns = 1; per draw its constants and zmax, 38
+FLOPS_KEPLER = 91
+FLOPS_ORBIT_POINT = {True: FLOPS_KEPLER + 24, False: FLOPS_KEPLER + 73}
+FLOPS_ORBIT_DRAW = 38
+# device sleep queued before each timed call (~1 ms at the H100's clock)
+LEAD_CYCLES = 2_000_000
 
 
 class SmokeFailure(Exception):
@@ -82,18 +98,18 @@ def phase_build(chi2_core):
     so = chi2_core.build(verbose=True)
     dt = time.perf_counter() - t0
     print(f"phase 2: built {so.name} (chi2_supersampled, "
-          f"chi2_supersampled_v3) in {dt:.2f} s")
+          f"chi2_supersampled_v3, chi2_from_orbit, chi2_from_orbit_v3) in "
+          f"{dt:.2f} s")
     return dt
 
 
-def _chunk_inputs(torch, C, n_t, ns, window, seed):
-    """One chunk of (q0 ... obs_dev) for chi2_supersampled, built by the
-    port's own coefficient and exposure stages from seeded draws (the
-    draws of tests/test_pallas_core.py)."""
+def _draws(torch, C, n_t, ns, window, seed):
+    """One chunk of seeded draws (those of tests/test_pallas_core.py):
+    the orbit (time, P, aR, inc, e, w), the rest of the kernels' inputs
+    (cA, cB1, cB2, seg, g, obs_dev) from the port's coefficient stage, and
+    the exposure nodes."""
     from triceratops_tpu_torch.ops import lightcurve as lc
-    from triceratops_tpu_torch.ops.fastcore import (
-        deficit_coeffs, exposure_z2_poly)
-    from triceratops_tpu_torch.core.kepler import projected_z
+    from triceratops_tpu_torch.ops.fastcore import deficit_coeffs
 
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -112,27 +128,34 @@ def _chunk_inputs(torch, C, n_t, ns, window, seed):
     obs = f(rng.normal(0, SIGMA_GATE, n_t))[None, :].contiguous()
     cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
     if ns > 1:
-        q0, q1, q2, front = exposure_z2_poly(t, 0.0, P, aR, inc, e, w)
         offs, wgts = lc._gl_exposure_nodes(EXPTIME, ns)
     else:
-        z, front = projected_z(t[None, :], 0.0, P[:, None], aR[:, None],
-                               inc[:, None], e[:, None], w[:, None])
-        q0 = z * z
-        q1, q2 = torch.zeros_like(q0), torch.zeros_like(q0)
         offs, wgts = np.zeros(1, np.float32), np.ones(1, np.float32)
-    args = (q0.contiguous(), q1.contiguous(), q2.contiguous(),
-            front.float(), cA.contiguous(), cB1.contiguous(),
-            cB2.contiguous(), torch.stack(segs, 1).contiguous(), g, obs)
-    return args, tuple(map(float, offs)), tuple(map(float, wgts))
+    rest = (cA.contiguous(), cB1.contiguous(), cB2.contiguous(),
+            torch.stack(segs, 1).contiguous(), g, obs)
+    return ((t, P, aR, inc, e, w), rest, tuple(map(float, offs)),
+            tuple(map(float, wgts)))
+
+
+def _chunk_inputs(torch, chi2_core, C, n_t, ns, window, seed):
+    """One chunk of (q0 ... obs_dev) for chi2_supersampled: the planes of
+    the seeded draws' exposure z^2 model (chi2_core.orbit_planes)."""
+    orbit, rest, offs, wgts = _draws(torch, C, n_t, ns, window, seed)
+    return (*chi2_core.orbit_planes(*orbit, ns), *rest), offs, wgts
 
 
 def _median_ms(torch, fn, reps=20):
+    """Median device time of fn() between two CUDA events. Each timed call
+    is queued behind ~1 ms of device sleep, so the host's wrapper time
+    (checks, ctypes; ~0.05 ms) overlaps the sleep instead of showing as
+    device time before a short kernel starts."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(LEAD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -141,27 +164,64 @@ def _median_ms(torch, fn, reps=20):
     return float(np.median(times))
 
 
-def chi2_bound(torch, args, offs):
-    """(bound_ms, bound_by, active share): the least time the card could
-    take for chi2_supersampled on these inputs. Bytes: each input read
-    once, the output written once. Operations: the FP32 flops this data
-    needs: every (draw, time) point evaluates its z^2 model to decide
-    whether it is in transit; the points in front with z < zmax at some
-    node (the ones whose deficit is not ~0) run the full per-node work."""
-    q0, q1, q2, front, cA, cB1, cB2, seg, g, obs = args
-    C, n_t = q0.shape
-    S = len(offs)
-    nbytes = 4 * (sum(a.numel() for a in args) + C)
+def _active_points(torch, q0, q1, q2, front, seg, offs):
+    """Points in front with z < zmax at some node: the ones whose deficit
+    is not ~0, which run the kernels' full per-node work."""
     zmax2 = (seg[:, 1] + 1.0 / seg[:, 4]) ** 2
     inside = torch.zeros_like(front, dtype=torch.bool)
     for d in offs:
         inside |= (q0 + q1 * d + q2 * (d * d)) < zmax2[:, None]
-    n_active = int((inside & (front > 0)).sum())
-    flops = (n_active * (S * FLOPS_NODE_POINT + FLOPS_POINT)
-             + (C * n_t - n_active) * S * 4 + 2 * n_t)
+    return int((inside & (front > 0)).sum())
+
+
+def _deficit_flops(n_active, n_points, S, n_t):
+    """FP32 flops the plane kernels spend past reading their inputs: every
+    point evaluates its z^2 model at the nodes to decide whether it is in
+    transit; the points in transit run the full per-node work."""
+    return (n_active * (S * FLOPS_NODE_POINT + FLOPS_POINT)
+            + (n_points - n_active) * S * 4 + 2 * n_t)
+
+
+def _bound(nbytes, flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    return 1e3 * max(t_bytes, t_ops), bound_by, n_active / (C * n_t)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def chi2_bound(torch, args, offs):
+    """(bound_ms, bound_by, active share): the least time the card could
+    take for chi2_supersampled on these inputs. Bytes: each input read
+    once, the output written once. Operations: the FP32 flops this data
+    needs (_deficit_flops)."""
+    q0, q1, q2, front, cA, cB1, cB2, seg, g, obs = args
+    C, n_t = q0.shape
+    nbytes = 4 * (sum(a.numel() for a in args) + C)
+    n_active = _active_points(torch, q0, q1, q2, front, seg, offs)
+    return (*_bound(nbytes, _deficit_flops(n_active, C * n_t, len(offs),
+                                           n_t)), n_active / (C * n_t))
+
+
+def orbit_bound(torch, chi2_core, orbit, rest, offs, ns):
+    """(bound_ms, bound_by, active share) of chi2_from_orbit on these
+    inputs. Bytes: time, obs, the six per-draw parameters (P, aR, inc, e,
+    w, g) and 59 coefficients read once, the output written once.
+    Operations: the orbit source's work at every point and draw
+    (FLOPS_ORBIT_POINT, FLOPS_ORBIT_DRAW) plus the plane kernels' work on
+    the same z^2 model, counted on planes made a draw slice at a time."""
+    t, P, aR, inc, e, w = orbit
+    seg = rest[3]
+    C, n_t = P.shape[0], t.shape[0]
+    nbytes = 4 * (sum(a.numel() for a in (*orbit, *rest)) + C)
+    step = max(256, (1 << 24) // n_t)
+    n_active = 0
+    for i in range(0, C, step):
+        s = slice(i, i + step)
+        planes = chi2_core.orbit_planes(t, P[s], aR[s], inc[s], e[s], w[s],
+                                        ns)
+        n_active += _active_points(torch, *planes, seg[s], offs)
+    flops = (C * n_t * FLOPS_ORBIT_POINT[ns == 1] + C * FLOPS_ORBIT_DRAW
+             + _deficit_flops(n_active, C * n_t, len(offs), n_t))
+    return (*_bound(nbytes, flops), n_active / (C * n_t))
 
 
 def _gate(torch, name, kern, plain, C):
@@ -190,29 +250,37 @@ def _gate(torch, name, kern, plain, C):
 
 
 def phase_kernel(torch, chi2_core):
-    """Each kernel vs its plain version on the card, at the chunk the main
-    path gives it (v2 rounds the draw chunk to 256, v3 to 128). lnL =
-    const - chi2 / (2 sigma^2), so the gates act on d = |chi2_kernel -
-    chi2_plain| / (2 sigma^2): p99 < 0.05 and max < 1.0
-    (tests/test_pallas_core.py), identical finite masks, and lnZ of the
-    two within 1e-2 nats. At n_t = 8055 and 20099 most draws miss the
-    curve by ~1e5 in lnL, where f32 summation order alone moves lnL by
-    O(1); there the absolute gates apply to the draws within 50 of the
-    best lnL (the ones that carry evidence weight) and a relative gate
-    (p99 < 1e-3, max < 2e-2, tests/test_pallas_core.py::TestPallasEB) to
-    all draws."""
-    from triceratops_tpu_torch.ops.lightcurve import draw_chunk
+    """Each kernel vs its plain version on the card. lnL = const - chi2 /
+    (2 sigma^2), so the gates act on d = |chi2_kernel - chi2_plain| /
+    (2 sigma^2): p99 < 0.05 and max < 1.0 (tests/test_pallas_core.py),
+    identical finite masks, and lnZ of the two within 1e-2 nats. At
+    n_t = 8055 and 20099 most draws miss the curve by ~1e5 in lnL, where
+    f32 summation order alone moves lnL by O(1); there the absolute gates
+    apply to the draws within 50 of the best lnL (the ones that carry
+    evidence weight) and a relative gate (p99 < 1e-3, max < 2e-2,
+    tests/test_pallas_core.py::TestPallasEB) to all draws.
+
+    The plane kernels run at the chunk the n_t-bound draw_chunk gives
+    (v2 rounds it to 256, v3 to 128). The orbit kernels are compared at
+    the main path's chunk (orbit_chunk(1e6) = 1000192 draws) where the
+    plain version's (C, n_t) planes fit (n_t = 100), and at the old chunk
+    on the long curves; they are timed at the main path's chunk, and beside their
+    yardstick (orbit_planes, i.e. exposure_z2_poly, plus the plane kernel
+    of the same schedule) on the draws of the comparison."""
+    from triceratops_tpu_torch.ops.lightcurve import draw_chunk, orbit_chunk
 
     def chunk(n_t, ns, tile):
         return -(-draw_chunk(n_t, ns) // tile) * tile
 
+    c_main = orbit_chunk(N_DRAWS)
     shapes = [("slice", 100, NSAMPLES, 0.15), ("long", 8055, NSAMPLES, 0.3),
               ("full", 20099, NSAMPLES, 1.5), ("ns1", 100, 1, 0.15)]
     out = {}
     for i, (name, n_t, ns, window) in enumerate(shapes):
         C2 = chunk(n_t, ns, chi2_core.DRAW_TILE)
         C3 = chunk(n_t, ns, chi2_core.DRAW_LANES)
-        args, offs, wgts = _chunk_inputs(torch, C2, n_t, ns, window, seed=i)
+        args, offs, wgts = _chunk_inputs(torch, chi2_core, C2, n_t, ns,
+                                         window, seed=i)
         # v3's chunk is the first C3 <= C2 draws of the same inputs
         args3 = tuple(a[:C3] for a in args[:9]) + (args[9],)
         row = {}
@@ -249,8 +317,53 @@ def phase_kernel(torch, chi2_core):
             row[kname] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
                               transpose_ms=tr_ms)
+        del args, args3, planes
+        row.update(_orbit_shape(torch, chi2_core, name, n_t, ns, window, i,
+                                c_main if n_t <= 1000 else C2, c_main))
         out[name] = row
     return out
+
+
+def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
+                 C_main):
+    """Both orbit kernels at one shape: the gates against the plain version
+    and the yardstick at C_cmp draws, the time and bound at C_main."""
+    orbit, rest, offs, wgts = _draws(torch, C_cmp, n_t, ns, window, seed)
+    kw = dict(offs=offs, wgts=wgts, ns=ns)
+    plain = chi2_core.chi2_from_orbit_plain(*orbit, *rest, **kw)
+    plain_ms = _median_ms(torch, lambda: chi2_core.chi2_from_orbit_plain(
+        *orbit, *rest, **kw), reps=5)
+    if C_main != C_cmp:
+        main = _draws(torch, C_main, n_t, ns, window, seed)[:2]
+    else:
+        main = orbit, rest
+    bound_ms, bound_by, share = orbit_bound(torch, chi2_core, *main, offs,
+                                            ns)
+    row = {}
+    for kname, plane_fn in (("chi2_from_orbit", chi2_core.chi2_supersampled),
+                            ("chi2_from_orbit_v3",
+                             chi2_core.chi2_supersampled_v3)):
+        fn = getattr(chi2_core, kname)
+        kern = fn(*orbit, *rest, **kw)
+        torch.cuda.synchronize()
+        p99, dmax, dz = _gate(torch, f"{name} {kname}", kern, plain, C_cmp)
+        cmp_ms = _median_ms(torch, lambda: fn(*orbit, *rest, **kw))
+        yard_ms = _median_ms(torch, lambda: plane_fn(
+            *chi2_core.orbit_planes(*orbit, ns), *rest, offs=offs,
+            wgts=wgts))
+        ms = (cmp_ms if C_main == C_cmp
+              else _median_ms(torch, lambda: fn(*main[0], *main[1], **kw)))
+        print(f"phase 3: {name} {kname} n_t={n_t} nodes={len(offs)}: at "
+              f"C={C_cmp} lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff "
+              f"{dz:.3g}; kernel {cmp_ms:.4f} ms, yardstick (planes + "
+              f"plane kernel) {yard_ms:.4f} ms, plain {plain_ms:.4f} ms; at "
+              f"C={C_main} kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {share:.4f} of points in transit) (medians)")
+        row[kname] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          yardstick_ms=yard_ms, cmp_ms=cmp_ms, C=C_main,
+                          C_cmp=C_cmp)
+    return row
 
 
 def toi465_field():
@@ -288,10 +401,11 @@ def toi465_field():
     return pd.DataFrame(rows), time_, flux, sigma, P
 
 
-def phase_slice(torch, chi2_core, tr, workdir):
-    """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
-    stars. Returns each kernel's launches in its own main-path run."""
-    from triceratops_tpu_torch.ops import lightcurve
+def make_run(tr, workdir):
+    """bench.py's configuration plus two nearby stars, built once; returns
+    the target and run(seed, backend="auto"), one calc_probs call on the
+    card and its wall in s (host clock; the call ends in a device-to-host
+    copy)."""
     from triceratops_tpu_torch.populations.synthetic import (
         make_synthetic_trilegal)
 
@@ -303,31 +417,49 @@ def phase_slice(torch, chi2_core, tr, workdir):
     td = t.stars["tdepth"].values
     check(((td > 0) & (td <= 1)).all(), f"tdepths {td}: a star drops out")
 
-    def run(seed, backend="auto"):  # one calc_probs call; its wall in s
+    def run(seed, backend="auto"):
         t0 = time.perf_counter()
         t.calc_probs(time_, flux, sigma, P_orb=P, N=N_DRAWS,
                      nsamples=NSAMPLES, verbose=0, key=seed, device="cuda",
                      backend=backend)
         return time.perf_counter() - t0
 
+    return t, run
+
+
+def phase_slice(torch, chi2_core, tr, workdir):
+    """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
+    stars. Returns each kernel's launches in its path's run (v2 or v3)."""
+    from triceratops_tpu_torch.ops import lightcurve
+
+    t, run = make_run(tr, workdir)
+
+    counters = ("launches", "launches_v3", "launches_orbit",
+                "launches_orbit_v3")
+
     def counts():
-        return chi2_core.launches, chi2_core.launches_v3
+        return {n: getattr(chi2_core, n) for n in counters}
 
     def reset():
-        chi2_core.launches = chi2_core.launches_v3 = 0
+        for n in counters:
+            setattr(chi2_core, n, 0)
+
+    def only(c, name):  # name rose, every other counter stayed at 0
+        return c[name] > 0 and all(v == 0 for n, v in c.items() if n != name)
 
     reset()
     wall0 = run(1)
-    launches, launches_v3 = counts()
+    main_counts = counts()
     lnZ, probs = t.lnZ.copy(), t.probs["prob"].to_numpy()
     names = t.probs["scenario"].values
     print(f"phase 4: calc_probs N={N_DRAWS} nsamples={NSAMPLES}, "
-          f"{len(lnZ)} rows: {wall0:.3f} s (first call), {launches} v2 "
-          f"kernel launches, {launches_v3} v3; FPP {t.FPP:.6g}, "
-          f"NFPP {t.NFPP:.6g}")
+          f"{len(lnZ)} rows: {wall0:.3f} s (first call), launches "
+          f"{main_counts}; FPP {t.FPP:.6g}, NFPP {t.NFPP:.6g}")
     print("phase 4: lnZ " + ", ".join(
         f"{n}={v:.4f}" for n, v in zip(names, lnZ)))
-    check(launches > 0, "the v2 kernel was not launched on the main path")
+    check(only(main_counts, "launches_orbit"),
+          f"the main path must launch only the v2 orbit kernel: "
+          f"{main_counts}")
     check(len(lnZ) == 21, f"{len(lnZ)} rows, expected 21")
     check(np.isfinite(lnZ).all(), f"non-finite lnZ {lnZ}")
     check(abs(probs.sum() - 1.0) < 1e-6, f"probabilities sum {probs.sum()}")
@@ -338,7 +470,7 @@ def phase_slice(torch, chi2_core, tr, workdir):
 
     reset()
     wall_plain = run(1, backend="torch")
-    check(counts() == (0, 0), "the plain path launched a kernel")
+    check(not any(counts().values()), "the plain path launched a kernel")
     dz = np.abs(t.lnZ - lnZ)
     print(f"phase 5: plain torch path (same seed, N={N_DRAWS}) "
           f"{wall_plain:.3f} s; per-row |lnZ kernel - lnZ plain| max "
@@ -349,17 +481,17 @@ def phase_slice(torch, chi2_core, tr, workdir):
     try:
         reset()
         wall_v3 = run(1)
-        v2_in_v3, launches_v3 = counts()
+        v3_counts = counts()
         dz3 = np.abs(t.lnZ - lnZ)
         wall_v3_warm = run(5)
     finally:
         lightcurve.CHI2_SCHEDULE = "2"
     print(f"phase v3: same seed under the v3 schedule {wall_v3:.3f} s, "
-          f"warm (seed 5) {wall_v3_warm:.4f} s; {launches_v3} v3 kernel "
-          f"launches, {v2_in_v3} v2; per-row |lnZ v3 - lnZ v2| max "
-          f"{dz3.max():.3g}")
-    check(launches_v3 > 0, "the v3 kernel was not launched")
-    check(v2_in_v3 == 0, "the v2 kernel launched under the v3 schedule")
+          f"warm (seed 5) {wall_v3_warm:.4f} s; launches {v3_counts}; "
+          f"per-row |lnZ v3 - lnZ v2| max {dz3.max():.3g}")
+    check(only(v3_counts, "launches_orbit_v3"),
+          f"the v3 schedule must launch only the v3 orbit kernel: "
+          f"{v3_counts}")
     check(dz3.max() < 1e-2, f"v3 and v2 lnZ differ: {dz3}")
 
     torch.cuda.reset_peak_memory_stats()
@@ -368,40 +500,90 @@ def phase_slice(torch, chi2_core, tr, workdir):
     print(f"phase 6: warm calc_probs walls {walls} s, median {med:.4f} s; "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return (launches, launches_v3), run
+    # each kernel's launches in its own path's run: the plane kernels are
+    # on neither path
+    return dict(chi2_supersampled=main_counts["launches"],
+                chi2_supersampled_v3=v3_counts["launches_v3"],
+                chi2_from_orbit=main_counts["launches_orbit"],
+                chi2_from_orbit_v3=v3_counts["launches_orbit_v3"]), run
 
 
-def phase_profile(torch, run):
+def phase_profile(torch, run, backends=("auto", "torch")):
     """One warm call per path under torch.profiler (CPU + CUDA), beside an
-    unprofiled warm call of the same path: device time, the device's idle
-    share against the unprofiled wall, CUDA kernel count, host self time
-    and the top device ops."""
+    unprofiled warm call of the same path: the kernel launches of the
+    profiled call, device time (the summed durations of the device events:
+    kernels, copies and sets, each once), the device's idle share against
+    the unprofiled wall, the count of device events ("CUDA kernels"), host
+    self time, the top kernels and the torch ops that launch the most
+    device time, and the top host ops. Host ranges mark the likelihood
+    cores (api.lnL_planet / lnL_eb, whole chunk loops) and the per-chunk
+    coefficient stage inside them (lightcurve.deficit_coeffs)."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from triceratops_tpu_torch.ops import chi2_core, lightcurve
+    from triceratops_tpu_torch.scenarios import api
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
+    def ranged(name, fn):
+        def inner(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return inner
 
-    for backend in ("auto", "torch"):
+    def launch_counts():
+        return {n: v for n, v in vars(chi2_core).items()
+                if n.startswith("launches")}
+
+    marks = [(lightcurve, "deficit_coeffs", "range: deficit_coeffs"),
+             (api, "lnL_planet", "range: lnL core"),
+             (api, "lnL_eb", "range: lnL core")]
+    for backend in backends:
         wall = run(6, backend)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall_prof = run(6, backend)
-        ka = prof.key_averages()
-        device_ms = sum(dev_us(e) for e in ka) / 1e3
+        saved = [getattr(m, n) for m, n, _ in marks]
+        for m, n, label in marks:
+            setattr(m, n, ranged(label, getattr(m, n)))
+        before = launch_counts()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_prof = run(6, backend)
+        finally:
+            for (m, n, _), f in zip(marks, saved):
+                setattr(m, n, f)
+        launched = {n: v - before[n] for n, v in launch_counts().items()}
+        # a kernel is also in its launching op's self device time, and a
+        # range's device-side span covers its kernels: count device events
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("range: ")]
+        device_ms = sum(e.device_time_total for e in dev) / 1e3
+        per_kernel, calls = Counter(), Counter()
+        for e in dev:
+            per_kernel[e.name] += e.device_time_total
+            calls[e.name] += 1
+        ka = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CPU]
         host_ms = sum(e.self_cpu_time_total for e in ka) / 1e3
-        n_kernels = sum(1 for e in prof.events()
-                        if e.device_type == DeviceType.CUDA)
-        chi2 = [e for e in ka if "chi2_kernel" in e.key]
-        top = sorted(ka, key=dev_us, reverse=True)[:8]
         print(f"profile {backend}: warm wall {wall:.4f} s unprofiled, "
-              f"{wall_prof:.4f} s profiled; device time {device_ms:.1f} ms, "
-              f"idle share {1.0 - device_ms / (1e3 * wall):.3f}; "
-              f"{n_kernels} CUDA kernels; host self time {host_ms:.1f} ms")
-        for e in chi2 + top:
-            print(f"profile {backend}:   {e.key[:60]}: {e.count} calls, "
-                  f"{dev_us(e) / 1e3:.2f} ms device")
+              f"{wall_prof:.4f} s profiled; launches {launched}; device "
+              f"time {device_ms:.1f} ms, idle share "
+              f"{1.0 - device_ms / (1e3 * wall):.3f}; {len(dev)} CUDA "
+              f"kernels; host self time {host_ms:.1f} ms")
+        for name, us in per_kernel.most_common(6):
+            print(f"profile {backend}:   kernel {name[:60]}: {calls[name]} "
+                  f"calls, {us / 1e3:.2f} ms device")
+        for e in sorted(ka, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:6]:
+            print(f"profile {backend}:   op {e.key[:50]}: {e.count} calls, "
+                  f"{e.self_device_time_total / 1e3:.2f} ms device")
+        for e in ka:
+            if e.key.startswith("range: "):
+                print(f"profile {backend}:   {e.key}: {e.count} calls, "
+                      f"{e.cpu_time_total / 1e3:.1f} ms host (inclusive)")
+        for e in sorted(ka, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:6]:
+            print(f"profile {backend}:   host {e.key[:50]}: {e.count} "
+                  f"calls, {e.self_cpu_time_total / 1e3:.1f} ms self")
 
 
 def main():
@@ -424,23 +606,28 @@ def main():
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    # each kernel at the main path's chunk shape (16384 x 100, GL-4);
-    # no single PyTorch call computes this function, so no library time
+    # each kernel at the main path's shape (n_t = 100, GL-4): the plane
+    # kernels at their old 16384-draw chunk, the orbit kernels at
+    # orbit_chunk(1e6); no single PyTorch call computes this function, so
+    # no library time
+    src = "triceratops_tpu_torch/csrc/chi2_supersampled.cu"
     kernels = []
-    for (name, replaces), n in zip(
-            (("chi2_supersampled", "triceratops_tpu/ops/pallas_core.py:120"),
-             ("chi2_supersampled_v3",
-              "triceratops_tpu/ops/pallas_core.py:267")), launches):
+    for name, replaces in (
+            ("chi2_supersampled", "triceratops_tpu/ops/pallas_core.py:120"),
+            ("chi2_supersampled_v3", "triceratops_tpu/ops/pallas_core.py:267"),
+            ("chi2_from_orbit", "triceratops_tpu/ops/pallas_core.py:120"),
+            ("chi2_from_orbit_v3",
+             "triceratops_tpu/ops/pallas_core.py:267")):
         k = timing["slice"][name]
-        row = {"name": name, "route": "cuda",
-               "source": "triceratops_tpu_torch/csrc/chi2_supersampled.cu",
-               "replaces": replaces, "launches": n,
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,
                "build_s": build_s}
-        if k["transpose_ms"] is not None:
-            row["transpose_ms"] = k["transpose_ms"]
+        for key in ("transpose_ms", "yardstick_ms", "C"):
+            if k.get(key) is not None:
+                row[key] = k[key]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

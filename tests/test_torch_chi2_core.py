@@ -1,7 +1,9 @@
 """The kernel module (ops/chi2_core.py) and the likelihood cores that feed
 it (ops/lightcurve.py), port vs the JAX Pallas kernels (the v2
 ``chi2_supersampled`` and the time-major ``chi2_supersampled_v3``) in
-interpret mode.
+interpret mode: the plane entry points against the kernels on identical
+planes, the orbit entry points (``chi2_from_orbit``, ``_v3``) against the
+JAX package's whole fused step, ``ops/lightcurve.py::_chi2_pallas``.
 
 Tolerances are those of tests/test_pallas_core.py: per-draw lnL carries
 O(0.01-0.1) reordering noise when sigma is small (a ~1e-7 f32 rounding
@@ -13,6 +15,7 @@ masks, and lnZ within 1e-2 nats.
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import jax.numpy as jnp
@@ -26,6 +29,7 @@ from triceratops_tpu.ops.pallas_core import chi2_supersampled as j_chi2
 from triceratops_tpu.ops.pallas_core import chi2_supersampled_v3 as j_chi2_v3
 from triceratops_tpu_torch.core.numerics import log_mean_exp_torch
 from triceratops_tpu_torch.ops import chi2_core
+from triceratops_tpu_torch.ops import fastcore as tfc
 from triceratops_tpu_torch.ops import lightcurve as tlc
 
 from test_torch_shared import REPO, f32, tf
@@ -157,18 +161,18 @@ class TestChi2Kernel:
 
     @pytest.mark.cuda
     def test_kernel_matches_plain_on_card(self):
-        """On the card: the CUDA kernel against its plain version on the
-        same CUDA tensors, at the slice's chunk shape (16384 x 100, GL-4),
-        with the lnL-scale gates above."""
+        """On the card: ``_chi2_fused`` launches the v2 orbit kernel (and no
+        plane kernel), against the plain planes on the same CUDA tensors,
+        at 16384 x 100, GL-4, with the lnL-scale gates above."""
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA card and nvcc")
         a = _inputs(N=16384, n_t=100, seed=1)
         time, obs, k, P, aR, inc, e, w, u1, u2, g = (
             torch.as_tensor(x, device="cuda") for x in a)
-        before = chi2_core.launches
+        before = _counts()
         kern = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1,
                                u2, g, 100, 20)
-        assert chi2_core.launches == before + 1
+        assert _counts() == _plus(before, "launches_orbit")
         from triceratops_tpu_torch.ops.fastcore import (
             deficit_coeffs, exposure_z2_poly)
         cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
@@ -184,20 +188,20 @@ class TestChi2Kernel:
     @pytest.mark.cuda
     @pytest.mark.parametrize("n_t,ns", [(100, 20), (137, 1)])
     def test_v3_kernel_matches_plain_on_card(self, n_t, ns, monkeypatch):
-        """On the card: the v3 CUDA kernel against the plain version on the
-        same CUDA tensors (C = 16384; n_t = 137 ends in a partial time
-        block), with the lnL-scale gates above."""
+        """On the card: under the v3 schedule ``_chi2_fused`` launches the
+        v3 orbit kernel only, against the plain version on the same CUDA
+        tensors (C = 16384; n_t = 137 ends in a partial time block), with
+        the lnL-scale gates above."""
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA card and nvcc")
         monkeypatch.setattr(tlc, "CHI2_SCHEDULE", "3")
         a = _inputs(N=16384, n_t=n_t, seed=2)
         time, obs, k, P, aR, inc, e, w, u1, u2, g = (
             torch.as_tensor(x, device="cuda") for x in a)
-        before = chi2_core.launches_v3, chi2_core.launches
+        before = _counts()
         kern = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1,
                                u2, g, n_t, ns)
-        assert (chi2_core.launches_v3, chi2_core.launches) == (
-            before[0] + 1, before[1])
+        assert _counts() == _plus(before, "launches_orbit_v3")
         from triceratops_tpu_torch.ops.fastcore import deficit_coeffs
         from triceratops_tpu_torch.core.kepler import projected_z
         cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
@@ -218,6 +222,145 @@ class TestChi2Kernel:
             wgts=tuple(map(float, wt)))
         d = ((kern - plain).abs().double() / (2 * 5e-4 ** 2)).cpu().numpy()
         assert np.quantile(d, 0.99) < 0.05 and d.max() < 1.0
+
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("n_t,ns", [(100, 20), (137, 1)])
+    @pytest.mark.parametrize("name", ["chi2_supersampled",
+                                      "chi2_supersampled_v3"])
+    def test_plane_kernels_match_plain_on_card(self, name, n_t, ns):
+        """On the card: each plane kernel, off the main path now, against
+        the plain version on the same CUDA planes (C = 4096)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        arrs, offs, wgts = _chi2_inputs(ns, C=4096, n_t=n_t)
+        t = [torch.as_tensor(x, device="cuda") for x in arrs]
+        counter = "launches" if name == "chi2_supersampled" else "launches_v3"
+        before = _counts()
+        kern = getattr(chi2_core, name)(*t, offs=offs, wgts=wgts)
+        assert _counts() == _plus(before, counter)
+        plain = chi2_core.chi2_supersampled_plain(*t, offs=offs, wgts=wgts)
+        d = ((kern - plain).abs().double() / (2 * 5e-4 ** 2)).cpu().numpy()
+        assert np.quantile(d, 0.99) < 0.05 and d.max() < 1.0
+
+
+COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3")
+
+
+def _counts():
+    return {c: getattr(chi2_core, c) for c in COUNTERS}
+
+
+def _plus(counts, name):
+    return {**counts, name: counts[name] + 1}
+
+
+def _orbit_args(a, ns, to=torch.as_tensor):
+    """(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev) for the
+    orbit entry points from ``_inputs`` arrays, with the port's own
+    coefficients, plus the nodes as ``_chi2_fused`` picks them."""
+    time, obs, k, P, aR, inc, e, w, u1, u2, g = (to(x) for x in a)
+    cA, cB1, cB2, *segs = tfc.deficit_coeffs(k, u1, u2)
+    if ns > 1:
+        o, wt = tlc._gl_exposure_nodes(0.00139, ns)
+        offs, wgts = tuple(map(float, o)), tuple(map(float, wt))
+    else:
+        offs, wgts = (0.0,), (1.0,)
+    args = (time, P, aR, inc, e, w, cA.contiguous(), cB1.contiguous(),
+            cB2.contiguous(), torch.stack(segs, 1), g[:, None].contiguous(),
+            obs[None, :].contiguous())
+    return args, offs, wgts
+
+
+ORBIT = {"2": ("chi2_from_orbit", "launches_orbit"),
+         "3": ("chi2_from_orbit_v3", "launches_orbit_v3")}
+
+
+class TestOrbitKernel:
+    @pytest.mark.parametrize("n_t", [40, 137])
+    @pytest.mark.parametrize("ns", [4, 1])
+    @pytest.mark.parametrize("schedule", ["2", "3"])
+    def test_plain_matches_jax_chi2_pallas(self, schedule, ns, n_t,
+                                           monkeypatch):
+        """Each orbit wrapper on CPU tensors (its plain version) against the
+        JAX package's whole fused step, ``_chi2_pallas`` with the Pallas
+        kernel of the same schedule in interpret mode, on the same f32
+        draws (C = 256): lnL-scale gates p99 < 0.05 and max < 1.0, and lnZ
+        within 1e-2 nats."""
+        monkeypatch.setattr(jlc, "PALLAS_V", schedule)
+        a = _inputs(N=256, n_t=n_t, seed=8)
+        time, obs, k, P, aR, inc, e, w, u1, u2, g = map(jnp.asarray, a)
+        want = np.asarray(jlc._chi2_pallas(time, 0.00139, obs, k, P, aR,
+                                           inc, e, w, u1, u2, g, n_t, ns,
+                                           True), np.float64)
+        args, offs, wgts = _orbit_args(a, ns)
+        name, counter = ORBIT[schedule]
+        before = _counts()
+        got = getattr(chi2_core, name)(*args, offs=offs, wgts=wgts,
+                                       ns=ns).numpy().astype(np.float64)
+        assert _counts() == before           # CPU: plain path, no launch
+        inv = 1.0 / (2 * 5e-4 ** 2)
+        d = np.abs(got - want) * inv
+        assert np.quantile(d, 0.99) < 0.05, np.quantile(d, 0.99)
+        assert d.max() < 1.0, d.max()
+        dz = abs(float(log_mean_exp_torch(torch.as_tensor(-got * inv), 256))
+                 - float(log_mean_exp_jax(jnp.asarray(-want * inv), 256)))
+        assert dz < 1e-2, dz
+
+    @pytest.mark.parametrize("schedule", ["2", "3"])
+    def test_wrapper_rejects_bad_inputs(self, schedule):
+        """dtype, shape, contiguity, the draw multiple (256 for v2, 128 for
+        v3) and the node count, before anything runs."""
+        fn = getattr(chi2_core, ORBIT[schedule][0])
+        tile = 256 if schedule == "2" else 128
+        args, offs, wgts = _orbit_args(_inputs(N=256, n_t=40), 4)
+        kw = dict(offs=offs, wgts=wgts, ns=20)
+        with pytest.raises(TypeError, match="float32"):
+            fn(args[0].double(), *args[1:], **kw)
+        with pytest.raises(ValueError, match="shape"):
+            fn(*args[:3], args[3][:128], *args[4:], **kw)
+        with pytest.raises(ValueError, match="1-d"):
+            fn(args[0][None, :], *args[1:], **kw)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(*args[:6], args[6].t().contiguous().t(), *args[7:], **kw)
+        short = (args[0], *(x[:tile // 2] for x in args[1:11]), args[11])
+        with pytest.raises(ValueError, match=f"multiple of {tile}"):
+            fn(*short, **kw)
+        with pytest.raises(ValueError, match="offsets"):
+            fn(*args, offs=offs * 2, wgts=wgts * 2, ns=20)
+        with pytest.raises(ValueError, match="offsets"):
+            fn(*args, offs=(), wgts=(), ns=20)
+        with pytest.raises(ValueError, match="ns = 1"):
+            fn(*args, offs=offs, wgts=wgts, ns=1)
+        got = fn(*args, offs=(0.0,), wgts=(1.0,), ns=1)
+        want = chi2_core.chi2_from_orbit_plain(*args, offs=(0.0,),
+                                               wgts=(1.0,), ns=1)
+        assert torch.equal(got, want)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("n_t,ns", [(100, 20), (137, 1), (2000, 20)])
+    @pytest.mark.parametrize("schedule", ["2", "3"])
+    def test_kernel_matches_plain_on_card(self, schedule, n_t, ns):
+        """On the card: each orbit kernel against its plain version on the
+        same CUDA tensors (C = 8192), with the lnL-scale gates above; at
+        n_t = 2000 on the draws within 50 of the best lnL, where f32
+        summation order moves the far-off draws' |lnL| ~ 1e4 by O(1)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        a = _inputs(N=8192, n_t=n_t, seed=9)
+        args, offs, wgts = _orbit_args(
+            a, ns, lambda x: torch.as_tensor(x, device="cuda"))
+        name, counter = ORBIT[schedule]
+        before = _counts()
+        kern = getattr(chi2_core, name)(*args, offs=offs, wgts=wgts, ns=ns)
+        assert _counts() == _plus(before, counter)
+        plain = chi2_core.chi2_from_orbit_plain(*args, offs=offs, wgts=wgts,
+                                                ns=ns)
+        inv = 1.0 / (2 * 5e-4 ** 2)
+        lnL_p = (-plain.double() * inv).cpu().numpy()
+        d = ((kern - plain).abs().double() * inv).cpu().numpy()
+        near = lnL_p > lnL_p.max() - 50.0
+        assert np.quantile(d[near], 0.99) < 0.05 and d[near].max() < 1.0
 
 
 class TestSchedule:
@@ -251,6 +394,53 @@ class TestSchedule:
         assert tlc._kernel_chunk(300) == 384
         got = tlc.lnL_planet(*args, **kw)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+class TestOrbitChunk:
+    def test_values(self):
+        """ceil(N / 2^20) near-equal chunks, each rounded up to 256: the
+        1e6-draw cores and the 250k / 500k twin branches each run as one
+        chunk."""
+        assert [tlc.orbit_chunk(n) for n in (10**6, 250_000, 500_000)] == [
+            1000192, 250112, 500224]
+        assert tlc.orbit_chunk(1 << 20) == 1 << 20
+        assert tlc.orbit_chunk((1 << 20) + 1) == 524544
+        assert tlc.orbit_chunk(3 * 10**6) == 1000192
+        assert tlc.orbit_chunk(1) == tlc.orbit_chunk(0) == 256
+
+    def test_core_chunk_by_device(self):
+        """Unless the caller gives a chunk, a CUDA tensor on the fused path
+        takes the orbit chunk whatever n_t; the CPU route, ``exact`` and
+        ``backend="torch"`` take the n_t-bound ``draw_chunk``. A given
+        chunk is kept, rounded to the kernel's draw multiple under
+        ``backend="auto"``."""
+        cuda = SimpleNamespace(device=torch.device("cuda"))
+        cpu = torch.zeros(3)
+        orbit = tlc.orbit_chunk(10**6)
+        for n_t in (100, 20099):
+            assert tlc._core_chunk(None, 10**6, cuda, n_t, 20, False,
+                                   "auto") == orbit
+        assert tlc._core_chunk(None, 10**6, cpu, 100, 20, False,
+                               "auto") == 16384
+        assert tlc._core_chunk(None, 10**6, cuda, 8055, 20, True,
+                               "auto") == 1280
+        assert tlc._core_chunk(None, 10**6, cuda, 8055, 20, False,
+                               "torch") == tlc.draw_chunk(8055, 20) == 1041
+        assert tlc._core_chunk(300, 10**6, cuda, 100, 20, False,
+                               "auto") == 512
+        assert tlc._core_chunk(300, 10**6, cpu, 100, 20, False,
+                               "torch") == 300
+
+    def test_lnL_planet_does_not_depend_on_the_chunk(self):
+        """Per-draw lnL on the CPU route is the same at the caller's chunk
+        and at the orbit chunk (one chunk here)."""
+        N = 640
+        a = _inputs(N=N, seed=10)
+        args = _lnL_args(a, torch.ones(N, dtype=torch.bool), torch.as_tensor)
+        kw = dict(exptime=0.00139, n_t=40, ns=20)
+        small = tlc.lnL_planet(*args, **kw, chunk=256)
+        whole = tlc.lnL_planet(*args, **kw, chunk=tlc.orbit_chunk(N))
+        np.testing.assert_array_equal(small.numpy(), whole.numpy())
 
 
 class TestLikelihoodCores:

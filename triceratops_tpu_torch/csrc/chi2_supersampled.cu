@@ -1,12 +1,15 @@
-// Fused supersample -> Chebyshev deficit -> chi^2 for one draw chunk, in
-// two schedules that share their per-point math.
+// Fused exposure z^2 -> supersample -> Chebyshev deficit -> chi^2 for one
+// draw chunk: two schedules, each built over two z^2 sources chosen at
+// compile time.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   * ops/pallas_core.py::chi2_supersampled (body _chi2_kernel, helper
 //     _clenshaw_tile; the v2 schedule): chi2_kernel below;
 //   * ops/pallas_core.py::chi2_supersampled_v3 (body _chi2_kernel_v3; the
-//     time-major v3 schedule): chi2_kernel_v3 below.
-// Both compute the same function:
+//     time-major v3 schedule): chi2_kernel_v3 below;
+// and, with the orbit source, the XLA producer that fed them on the TPU
+// (ops/lightcurve.py::_chi2_pallas: exposure_z2_poly, or projected_z at
+// one node). All compute the same function:
 //
 //   out[c] = sum_t gD (2 obs[t] + gD) + sum_t obs[t]^2,
 //   gD     = g[c] * front[c,t] * sum_s wgt[s] D_c(z_s),
@@ -15,38 +18,56 @@
 // with D_c the per-draw three-segment sqrt-map Chebyshev deficit
 // (ops/fastcore.py::cheb_deficit_eval), clipped to [0, 1].
 //
-// What bounds it on an H100: every (draw, time) point costs 16 bytes of
-// q0/q1/q2/front, read once for all nodes; a point in transit also costs,
-// per node, two IEEE square roots for the sqrt map, one for z and an
-// 18-step Clenshaw recurrence with a per-point segment select (~73 FP32
-// flops), ~300 flops per point at GL-4, far above the card's FP32 balance
-// point. The out-of-transit skip leaves the FP32 work to the points near
-// the transit (~27 % of them at the main path's n_t = 100, 3-14 % on long
-// curves), so on that data the least time is set by the bytes
-// (chip_smoke.py prints the bound for each shape).
+// The z^2 source gives (q0, q1, q2, front) at one (draw, time) point:
+//   * PlaneSource reads them from four f32 planes in device memory,
+//     draw-major (C, n_t) for v2 or time-major (n_t, C) for v3 (the TPU
+//     kernels' contract);
+//   * OrbitSource computes them in registers from the draw's orbit (P,
+//     a_R, inc, e, w) and the exposure time: core/kepler.py::z2_taylor
+//     (one Markley + Householder-4 Kepler solve, closed-form derivatives)
+//     or, at one node, projected_z with q0 = z^2, q1 = q2 = 0.
+//
+// What bounds it on an H100: with planes, 16 bytes per (draw, time) point
+// against ~16 flops to find a point out of transit, so bytes bound it (the
+// planes are 26 of the 30 MB a 16384 x 100 launch reads). The orbit source
+// reads 4 bytes per time point and 260 bytes per draw, and spends ~165
+// FP32 operations per point on the Kepler solve and the z^2 model (among
+// them an IEEE sin/cos pair, a cube root, a square root and fourteen
+// divisions, each several instructions), plus ~300 per point in transit
+// for the deficit at GL-4: operations bound it.
 //
 // What the design does about it:
 //   * point_deficit, the per-point work (sqrt map, recurrence with its
 //     segment select, clip, node weights), is one inlined device function
-//     that both kernels call; the draw's 3 x 18 coefficients and 5 segment
-//     scalars live in registers and the recurrence is fully unrolled;
+//     that every kernel calls; the draw's 3 x 18 coefficients and 5
+//     segment scalars live in registers and the recurrence is unrolled;
+//   * the orbit source keeps the (C, n_t) planes out of device memory
+//     altogether: its per-draw constants (clamped e, n, the mean anomaly at
+//     transit, sin/cos w, sin^2/cos^2 inc, sqrt(1 - e^2)) are computed once
+//     per warp (v2) or thread (v3), every point runs its own Kepler solve;
 //   * v2 (chi2_kernel): one warp per draw, lanes striding over time, so
-//     the draw-major (C, n_t) planes are read coalesced; a 32-point group
-//     in which no lane is in front with z < zmax at any node skips the
-//     square roots and the recurrence (__any_sync); the per-draw sum is a
-//     __shfl_xor_sync butterfly;
+//     plane loads are coalesced and the orbit source keeps all lanes busy
+//     on the solve; a 32-point group in which no lane is in front with
+//     z < zmax at any node skips the square roots and the recurrence
+//     (__any_sync); the per-draw sum is a __shfl_xor_sync butterfly;
 //   * v3 (chi2_kernel_v3): one thread per draw, the 32 draws of a warp
-//     consecutive, each thread walking the time axis of the time-major
-//     (n_t, C) planes, so every time step is one coalesced 128-byte load
-//     per plane per warp; the skip is v3's block skip in warp form: a
-//     block of 32 draws x TIME_SUB time steps in which no (draw, time,
-//     node) is in front with z < zmax skips the square roots and the
-//     recurrence. Each thread owns its draw's sum: no shuffle, no atomic.
-//     v3 has C threads in all, so at small C it keeps few warps per SM.
+//     consecutive, each thread walking the time axis, so a time-major
+//     plane row is one coalesced 128-byte load per warp and the orbit
+//     source reads one broadcast time value; the skip is a warp vote over
+//     32 draws x TIME_SUB time steps. Each thread owns its draw's sum: no
+//     shuffle, no atomic.
 // Both are deterministic. Points inside a group or block that does run keep
-// their ~1e-8 deficit residue at z >= zmax, as on the TPU. The square roots
-// and divisions stay IEEE (no --use_fast_math): the f32 error budget of the
-// deficit is ~1e-6 and approximate sqrt eats into it.
+// their ~1e-8 deficit residue at z >= zmax, as on the TPU.
+//
+// Float32 semantics: square roots and divisions stay IEEE, sin/cos/atan2
+// are the accurate sinf/cosf/atan2f (no --use_fast_math, no __sinf), the
+// cube root is cbrtf (the torch version's |x|^(1/3) pow differs by an ulp;
+// the Householder-4 step absorbs it), rounding to the nearest 2pi turn is
+// rintf (half to even, as torch.round), and sign(0) is 0 as torch.sign.
+// nvcc contracts a*b + c into FMAs; the two places where that would undo a
+// deliberate rounding, the compensated 2pi wrap and the sum of squares
+// cu^2 + cos^2(i) su^2, are written with __fmul_rn / __fadd_rn so they
+// round each product on its own, as core/kepler.py does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,10 +81,36 @@ constexpr int V3_THREADS = 32;    // one warp per block spreads small C
 constexpr int V3_DRAW_LANES = 128;
 constexpr int TIME_SUB = 8;
 
+// core/kepler.py's constants: each Python double rounded once to f32, as
+// torch and jax round a Python scalar that meets a float32 tensor
+constexpr double PI_D = 3.141592653589793;
+constexpr float E_MAX = 0.995f;
+constexpr float PI_F = (float)PI_D;
+constexpr float TWO_PI_F = (float)(2.0 * PI_D);
+constexpr float HALF_PI_F = (float)(PI_D / 2.0);
+constexpr float WRAP_HEAD = 6.28125f;   // 2pi = head + tail, head * k exact
+constexpr float WRAP_TAIL = (float)0.001935307179586232;
+constexpr float MARKLEY_C0 = (float)(3.0 * PI_D * PI_D);
+constexpr float MARKLEY_C1 = (float)(1.6 * PI_D);
+constexpr float MARKLEY_DEN = (float)(PI_D * PI_D - 6.0);
+constexpr float SIXTH = (float)(1.0 / 6.0);
+constexpr float THIRD = (float)(1.0 / 3.0);
+
 struct Nodes {
   float off[MAX_NODES];
   float off2[MAX_NODES];
   float wgt[MAX_NODES];
+};
+
+// The per-draw inputs every kernel reads besides its z^2 source.
+struct Chi2Args {
+  const float* cA;
+  const float* cB1;
+  const float* cB2;
+  const float* seg;
+  const float* g;
+  const float* obs;
+  float* out;
 };
 
 // One draw's deficit coefficients and segment scalars, in registers.
@@ -72,24 +119,191 @@ struct DrawCoeffs {
   float zsplit, zmid, invA, invB1, invB2, zmax2;
 };
 
-__device__ __forceinline__ void load_coeffs(
-    DrawCoeffs& k, const float* __restrict__ cA,
-    const float* __restrict__ cB1, const float* __restrict__ cB2,
-    const float* __restrict__ seg, int c) {
+__device__ __forceinline__ void load_coeffs(DrawCoeffs& k, const Chi2Args& p,
+                                            int c) {
 #pragma unroll
   for (int m = 0; m < M_CHEB; ++m) {
-    k.a[m] = cA[(int64_t)c * M_CHEB + m];
-    k.b1[m] = cB1[(int64_t)c * M_CHEB + m];
-    k.b2[m] = cB2[(int64_t)c * M_CHEB + m];
+    k.a[m] = __ldg(p.cA + (int64_t)c * M_CHEB + m);
+    k.b1[m] = __ldg(p.cB1 + (int64_t)c * M_CHEB + m);
+    k.b2[m] = __ldg(p.cB2 + (int64_t)c * M_CHEB + m);
   }
-  k.zsplit = seg[c * 5 + 0];
-  k.zmid = seg[c * 5 + 1];
-  k.invA = seg[c * 5 + 2];
-  k.invB1 = seg[c * 5 + 3];
-  k.invB2 = seg[c * 5 + 4];
+  k.zsplit = __ldg(p.seg + c * 5 + 0);
+  k.zmid = __ldg(p.seg + c * 5 + 1);
+  k.invA = __ldg(p.seg + c * 5 + 2);
+  k.invB1 = __ldg(p.seg + c * 5 + 3);
+  k.invB2 = __ldg(p.seg + c * 5 + 4);
   const float zmax = k.zmid + 1.0f / k.invB2;
   k.zmax2 = zmax * zmax;
 }
+
+// ---------------------------------------------------------------------------
+// z^2 sources. Each has a Draw of per-draw state (draw(c), once per draw)
+// and point(d, t, q0, q1, q2, front) for one exposure t of that draw.
+
+// The four planes in device memory, draw-major (C, n_t) for v2 or
+// time-major (n_t, C) for v3; stride is the length of a row (n_t or C).
+template <bool TimeMajor>
+struct PlaneSource {
+  const float* q0;
+  const float* q1;
+  const float* q2;
+  const float* front;
+  int64_t stride;
+  static constexpr bool kOneNode = false;
+
+  struct Draw {
+    int64_t base;
+  };
+  __device__ __forceinline__ Draw draw(int c) const {
+    return {TimeMajor ? (int64_t)c : (int64_t)c * stride};
+  }
+  __device__ __forceinline__ void point(const Draw& d, int t, float& a0,
+                                        float& a1, float& a2,
+                                        float& fr) const {
+    const int64_t i = TimeMajor ? d.base + (int64_t)t * stride : d.base + t;
+    a0 = __ldg(q0 + i);
+    a1 = __ldg(q1 + i);
+    a2 = __ldg(q2 + i);
+    fr = __ldg(front + i);
+  }
+};
+
+// torch.sign: 0 at 0
+__device__ __forceinline__ float sign0(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// core/kepler.py::solve_kepler_sc, float32 branch, returning (sinE, cosE):
+// compensated 2pi wrap, Markley (1995) starter on |Mw|, one staged
+// Householder-4 step, third-order Taylor rotation of the pair. e is
+// already clamped to [0, E_MAX].
+__device__ __forceinline__ void kepler_sc(float M, float e, float& sinE,
+                                          float& cosE) {
+  const float k = rintf(M / TWO_PI_F);
+  const float Mw = __fsub_rn(__fsub_rn(M, __fmul_rn(k, WRAP_HEAD)),
+                             __fmul_rn(k, WRAP_TAIL));
+  const float s = sign0(Mw);
+  const float Ma = fabsf(Mw);
+  const float alpha =
+      (MARKLEY_C0 + MARKLEY_C1 * (PI_F - Ma) / (1.0f + e)) / MARKLEY_DEN;
+  const float d = 3.0f * (1.0f - e) + alpha * e;
+  const float q = 2.0f * alpha * d * (1.0f - e) - Ma * Ma;
+  const float r = 3.0f * alpha * d * (d - 1.0f + e) * Ma + Ma * Ma * Ma;
+  const float cb = cbrtf(fabsf(r) + sqrtf(fmaxf(q * q * q + r * r, 0.0f)));
+  const float w = cb * cb;
+  const float E = (2.0f * r * w / (w * w + w * q + q * q) + Ma) / d;
+  float sE, cE;
+  sincosf(E, &sE, &cE);
+  const float f = E - e * sE - Ma;
+  const float fp = 1.0f - e * cE;
+  const float fpp = e * sE;
+  const float fppp = e * cE;
+  const float d1 = -f / fp;
+  const float d2 = -f / (fp + 0.5f * d1 * fpp);
+  const float dE = -f / (fp + 0.5f * d2 * fpp + d2 * d2 * fppp * SIXTH);
+  sinE = s * (sE + dE * (cE - 0.5f * dE * (sE + dE * cE * THIRD)));
+  cosE = cE - dE * (sE + 0.5f * dE * (cE - dE * sE * THIRD));
+}
+
+// The draw's orbit. Projected = false: core/kepler.py::z2_taylor at the
+// exposure centre (q1 = dz^2/dt, q2 = d^2z^2/dt^2 / 2); Projected = true:
+// projected_z, q0 = z^2 and q1 = q2 = 0 (the one-node path).
+template <bool Projected>
+struct OrbitSource {
+  const float* time;
+  const float* P;
+  const float* aR;
+  const float* inc;
+  const float* ecc;
+  const float* w;
+  static constexpr bool kOneNode = Projected;
+
+  struct Draw {
+    float e, Mtc, sw, cw, S, C, ome2, aR;
+    float n;          // 2pi / P as torch forms it: (1 / P) * 2pi
+    float P;          // projected_z: M = M_tc + 2pi t / P
+    float aRen, aRenn, nome2, m2enno;   // products z2_taylor forms first
+  };
+
+  __device__ __forceinline__ Draw draw(int c) const {
+    Draw d;
+    const float e = fminf(fmaxf(__ldg(ecc + c), 0.0f), E_MAX);
+    const float wc = __ldg(w + c);
+    const float ic = __ldg(inc + c);
+    d.e = e;
+    d.P = __ldg(P + c);
+    d.aR = __ldg(aR + c);
+    d.n = (1.0f / d.P) * TWO_PI_F;
+    // kepler.py::mean_anomaly_at_transit
+    const float nu_tc = HALF_PI_F - wc;
+    float sh, ch;
+    sincosf(nu_tc / 2.0f, &sh, &ch);
+    const float E_tc = 2.0f * atan2f(sqrtf(1.0f - e) * sh, sqrtf(1.0f + e) * ch);
+    d.Mtc = E_tc - e * sinf(E_tc);
+    sincosf(wc, &d.sw, &d.cw);
+    float si, ci;
+    sincosf(ic, &si, &ci);
+    d.S = si * si;
+    d.C = ci * ci;
+    d.ome2 = sqrtf((1.0f - e) * (1.0f + e));
+    d.aRen = d.aR * e * d.n;
+    d.aRenn = d.aRen * d.n;
+    d.nome2 = d.n * d.ome2;
+    d.m2enno = -2.0f * e * d.n * d.n * d.ome2;
+    return d;
+  }
+
+  __device__ __forceinline__ void point(const Draw& d, int ti, float& a0,
+                                        float& a1, float& a2,
+                                        float& fr) const {
+    const float t = __ldg(time + ti);
+    const float e = d.e;
+    float sinE, cosE;
+    if (Projected) {
+      kepler_sc(d.Mtc + TWO_PI_F * t / d.P, e, sinE, cosE);
+      const float beta = 1.0f - e * cosE;
+      const float inv_beta = 1.0f / beta;
+      const float cnu = (cosE - e) * inv_beta;
+      const float snu = d.ome2 * sinE * inv_beta;
+      const float su = d.sw * cnu + d.cw * snu;
+      const float cu = d.cw * cnu - d.sw * snu;
+      const float z = d.aR * beta *
+                      sqrtf(__fadd_rn(__fmul_rn(cu, cu),
+                                      __fmul_rn(d.C, __fmul_rn(su, su))));
+      a0 = z * z;
+      a1 = 0.0f;
+      a2 = 0.0f;
+      fr = su > 0.0f ? 1.0f : 0.0f;
+      return;
+    }
+    kepler_sc(d.Mtc + d.n * t, e, sinE, cosE);
+    const float beta = 1.0f - e * cosE;
+    const float r = d.aR * beta;
+    const float rdot = d.aRen * sinE / beta;
+    const float rdd =
+        d.aRenn * (cosE * beta - e * sinE * sinE) / (beta * beta * beta);
+    const float nudot = d.nome2 / (beta * beta);
+    const float nudd = d.m2enno * sinE / (beta * beta * beta * beta);
+    const float inv_beta = 1.0f / beta;
+    const float cnu = (cosE - e) * inv_beta;
+    const float snu = d.ome2 * sinE * inv_beta;
+    const float su = d.sw * cnu + d.cw * snu;
+    const float cu = d.cw * cnu - d.sw * snu;
+    const float s2u = 2.0f * su * cu;
+    const float c2u = 1.0f - 2.0f * su * su;
+    const float A =
+        __fadd_rn(__fmul_rn(cu, cu), __fmul_rn(d.C, __fmul_rn(su, su)));
+    const float rrS = r * r * d.S;
+    a0 = r * r * A;
+    a1 = 2.0f * r * rdot * A - rrS * s2u * nudot;
+    a2 = 0.5f * (2.0f * (rdot * rdot + r * rdd) * A -
+                 4.0f * r * rdot * d.S * s2u * nudot -
+                 rrS * (2.0f * c2u * nudot * nudot + s2u * nudd));
+    fr = su > 0.0f ? 1.0f : 0.0f;
+  }
+};
+
+// ---------------------------------------------------------------------------
 
 // z^2 at each exposure node from the quadratic model; returns whether any
 // node lies inside zmax.
@@ -138,23 +352,18 @@ __device__ __forceinline__ float point_deficit(const float (&z2)[S],
   return dbar;
 }
 
-template <int S>
+template <class Src, int S>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-chi2_kernel(const float* __restrict__ q0, const float* __restrict__ q1,
-            const float* __restrict__ q2, const float* __restrict__ front,
-            const float* __restrict__ cA, const float* __restrict__ cB1,
-            const float* __restrict__ cB2, const float* __restrict__ seg,
-            const float* __restrict__ g, const float* __restrict__ obs,
-            float* __restrict__ out, int C, int n_t, Nodes nodes) {
+chi2_kernel(Src src, Chi2Args p, int C, int n_t, Nodes nodes) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   if (c >= C) return;  // whole warp leaves together
 
   DrawCoeffs k;
-  load_coeffs(k, cA, cB1, cB2, seg, c);
-  const float gc = g[c];
+  load_coeffs(k, p, c);
+  const float gc = __ldg(p.g + c);
+  const typename Src::Draw d = src.draw(c);
 
-  const int64_t row = (int64_t)c * n_t;
   float acc = 0.0f;
   for (int t0 = 0; t0 < n_t; t0 += 32) {
     const int t = t0 + lane;
@@ -163,10 +372,10 @@ chi2_kernel(const float* __restrict__ q0, const float* __restrict__ q1,
     float fr = 0.0f, ob = 0.0f;
     bool active = false;
     if (inb) {
-      fr = front[row + t];
-      ob = obs[t];
-      active = exposure_z2<S>(q0[row + t], q1[row + t], q2[row + t], nodes,
-                              k.zmax2, z2);
+      float a0, a1, a2;
+      src.point(d, t, a0, a1, a2, fr);
+      ob = __ldg(p.obs + t);
+      active = exposure_z2<S>(a0, a1, a2, nodes, k.zmax2, z2);
       active &= fr > 0.0f;
       acc += ob * ob;
     }
@@ -177,44 +386,36 @@ chi2_kernel(const float* __restrict__ q0, const float* __restrict__ q1,
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) out[c] = acc;
+  if (lane == 0) p.out[c] = acc;
 }
 
-template <int S>
+template <class Src, int S>
 __global__ void __launch_bounds__(V3_THREADS)
-chi2_kernel_v3(const float* __restrict__ q0t, const float* __restrict__ q1t,
-               const float* __restrict__ q2t,
-               const float* __restrict__ frontt,
-               const float* __restrict__ cA, const float* __restrict__ cB1,
-               const float* __restrict__ cB2, const float* __restrict__ seg,
-               const float* __restrict__ g, const float* __restrict__ obs,
-               float* __restrict__ out, int C, int n_t, Nodes nodes) {
+chi2_kernel_v3(Src src, Chi2Args p, int C, int n_t, Nodes nodes) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * V3_THREADS + threadIdx.x;  // C % 128 == 0
 
   // sum_t obs^2, the same for every draw: lane-strided, then a butterfly
   float obs2 = 0.0f;
-  for (int t = lane; t < n_t; t += 32) obs2 += obs[t] * obs[t];
+  for (int t = lane; t < n_t; t += 32) obs2 += p.obs[t] * p.obs[t];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     obs2 += __shfl_xor_sync(0xffffffffu, obs2, o);
 
   DrawCoeffs k;
-  load_coeffs(k, cA, cB1, cB2, seg, c);
-  const float gc = g[c];
+  load_coeffs(k, p, c);
+  const float gc = __ldg(p.g + c);
+  const typename Src::Draw d = src.draw(c);
 
   float acc = 0.0f;
   for (int t0 = 0; t0 < n_t; t0 += TIME_SUB) {
-    // the block's 4 x TIME_SUB loads are issued together: the row index is
-    // clamped (no branch), and rows past the curve's end get front = 0
+    // the block's TIME_SUB points are fetched together: the time index is
+    // clamped (no branch), and steps past the curve's end get front = 0
     float a0[TIME_SUB], a1[TIME_SUB], a2[TIME_SUB], fr[TIME_SUB];
 #pragma unroll
     for (int j = 0; j < TIME_SUB; ++j) {
-      const int64_t i = (int64_t)min(t0 + j, n_t - 1) * C + c;
-      a0[j] = q0t[i];
-      a1[j] = q1t[i];
-      a2[j] = q2t[i];
-      const float f = frontt[i];
+      float f;
+      src.point(d, min(t0 + j, n_t - 1), a0[j], a1[j], a2[j], f);
       fr[j] = t0 + j < n_t ? f : 0.0f;
     }
     float z2[TIME_SUB][S];
@@ -229,13 +430,13 @@ chi2_kernel_v3(const float* __restrict__ q0t, const float* __restrict__ q1t,
 #pragma unroll
     for (int j = 0; j < TIME_SUB; ++j) {
       if (t0 + j < n_t) {
-        const float ob = obs[t0 + j];
+        const float ob = p.obs[t0 + j];
         const float gD = gc * (point_deficit<S>(z2[j], k, nodes) * fr[j]);
         acc += gD * (2.0f * ob + gD);
       }
     }
   }
-  out[c] = acc + obs2;
+  p.out[c] = acc + obs2;
 }
 
 Nodes make_nodes(const float* offs, const float* wgts, int n_nodes) {
@@ -248,14 +449,54 @@ Nodes make_nodes(const float* offs, const float* wgts, int n_nodes) {
   return nodes;
 }
 
-// Launch KERNEL<S> with S = n_nodes (1..4) on one grid.
-#define LAUNCH_BY_NODES(KERNEL, GRID, BLOCK, ST, ...)            \
-  switch (n_nodes) {                                              \
-    case 1: KERNEL<1><<<GRID, BLOCK, 0, ST>>>(__VA_ARGS__); break; \
-    case 2: KERNEL<2><<<GRID, BLOCK, 0, ST>>>(__VA_ARGS__); break; \
-    case 3: KERNEL<3><<<GRID, BLOCK, 0, ST>>>(__VA_ARGS__); break; \
-    default: KERNEL<4><<<GRID, BLOCK, 0, ST>>>(__VA_ARGS__); break; \
+template <bool V3, class Src, int S>
+void launch_nodes(const Src& src, const Chi2Args& p, int C, int n_t,
+                  const Nodes& nodes, cudaStream_t st) {
+  if constexpr (V3) {
+    chi2_kernel_v3<Src, S><<<C / V3_THREADS, V3_THREADS, 0, st>>>(
+        src, p, C, n_t, nodes);
+  } else {
+    chi2_kernel<Src, S><<<(C + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK,
+                          WARPS_PER_BLOCK * 32, 0, st>>>(src, p, C, n_t,
+                                                         nodes);
   }
+}
+
+// Launch the v2 or v3 kernel over Src with S = n_nodes (1..4; the
+// projected orbit source has one node only). Returns cudaGetLastError().
+template <bool V3, class Src>
+int launch(const Src& src, const Chi2Args& p, int C, int n_t,
+           const float* offs, const float* wgts, int n_nodes, void* stream) {
+  if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
+    return (int)cudaErrorInvalidValue;
+  if (V3 && (C <= 0 || C % V3_DRAW_LANES)) return (int)cudaErrorInvalidValue;
+  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (Src::kOneNode) {
+    launch_nodes<V3, Src, 1>(src, p, C, n_t, nodes, st);
+  } else {
+    switch (n_nodes) {
+      case 1: launch_nodes<V3, Src, 1>(src, p, C, n_t, nodes, st); break;
+      case 2: launch_nodes<V3, Src, 2>(src, p, C, n_t, nodes, st); break;
+      case 3: launch_nodes<V3, Src, 3>(src, p, C, n_t, nodes, st); break;
+      default: launch_nodes<V3, Src, 4>(src, p, C, n_t, nodes, st); break;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool V3>
+int launch_orbit(const float* time, const float* P, const float* aR,
+                 const float* inc, const float* e, const float* w,
+                 const Chi2Args& p, int C, int n_t, const float* offs,
+                 const float* wgts, int n_nodes, int projected,
+                 void* stream) {
+  if (projected)
+    return launch<V3>(OrbitSource<true>{time, P, aR, inc, e, w}, p, C, n_t,
+                      offs, wgts, n_nodes, stream);
+  return launch<V3>(OrbitSource<false>{time, P, aR, inc, e, w}, p, C, n_t,
+                    offs, wgts, n_nodes, stream);
+}
 
 }  // namespace
 
@@ -263,36 +504,50 @@ Nodes make_nodes(const float* offs, const float* wgts, int n_nodes) {
 // except offs/wgts, which are host arrays of n_nodes floats. Each returns
 // cudaGetLastError() after the launch.
 
-// v2: q0, q1, q2, front are draw-major (C, n_t).
+// v2 on planes: q0, q1, q2, front are draw-major (C, n_t).
 extern "C" int chi2_supersampled_launch(
     const float* q0, const float* q1, const float* q2, const float* front,
     const float* cA, const float* cB1, const float* cB2, const float* seg,
     const float* g, const float* obs, float* out, int C, int n_t,
     const float* offs, const float* wgts, int n_nodes, void* stream) {
-  if (n_nodes < 1 || n_nodes > MAX_NODES) return (int)cudaErrorInvalidValue;
-  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
-  const dim3 block(WARPS_PER_BLOCK * 32);
-  const dim3 grid((C + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
-  cudaStream_t st = (cudaStream_t)stream;
-  LAUNCH_BY_NODES(chi2_kernel, grid, block, st, q0, q1, q2, front, cA, cB1,
-                  cB2, seg, g, obs, out, C, n_t, nodes)
-  return (int)cudaGetLastError();
+  return launch<false>(PlaneSource<false>{q0, q1, q2, front, n_t},
+                Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs, wgts,
+                n_nodes, stream);
 }
 
-// v3: q0t, q1t, q2t, frontt are time-major (n_t, C); C % 128 == 0.
+// v3 on planes: q0t, q1t, q2t, frontt are time-major (n_t, C); C % 128 == 0.
 extern "C" int chi2_supersampled_v3_launch(
     const float* q0t, const float* q1t, const float* q2t,
     const float* frontt, const float* cA, const float* cB1, const float* cB2,
     const float* seg, const float* g, const float* obs, float* out, int C,
     int n_t, const float* offs, const float* wgts, int n_nodes,
     void* stream) {
-  if (n_nodes < 1 || n_nodes > MAX_NODES) return (int)cudaErrorInvalidValue;
-  if (C <= 0 || C % V3_DRAW_LANES) return (int)cudaErrorInvalidValue;
-  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
-  const dim3 block(V3_THREADS);
-  const dim3 grid(C / V3_THREADS);
-  cudaStream_t st = (cudaStream_t)stream;
-  LAUNCH_BY_NODES(chi2_kernel_v3, grid, block, st, q0t, q1t, q2t, frontt, cA,
-                  cB1, cB2, seg, g, obs, out, C, n_t, nodes)
-  return (int)cudaGetLastError();
+  return launch<true>(PlaneSource<true>{q0t, q1t, q2t, frontt, C},
+                Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs, wgts,
+                n_nodes, stream);
+}
+
+// v2 on the orbit: time (n_t,); P, aR, inc, e, w (C,). projected != 0
+// selects projected_z and needs n_nodes == 1.
+extern "C" int chi2_from_orbit_launch(
+    const float* time, const float* P, const float* aR, const float* inc,
+    const float* e, const float* w, const float* cA, const float* cB1,
+    const float* cB2, const float* seg, const float* g, const float* obs,
+    float* out, int C, int n_t, const float* offs, const float* wgts,
+    int n_nodes, int projected, void* stream) {
+  return launch_orbit<false>(time, P, aR, inc, e, w,
+                      Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs,
+                      wgts, n_nodes, projected, stream);
+}
+
+// v3 on the orbit: the same arguments; C % 128 == 0.
+extern "C" int chi2_from_orbit_v3_launch(
+    const float* time, const float* P, const float* aR, const float* inc,
+    const float* e, const float* w, const float* cA, const float* cB1,
+    const float* cB2, const float* seg, const float* g, const float* obs,
+    float* out, int C, int n_t, const float* offs, const float* wgts,
+    int n_nodes, int projected, void* stream) {
+  return launch_orbit<true>(time, P, aR, inc, e, w,
+                      Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs,
+                      wgts, n_nodes, projected, stream);
 }

@@ -1,14 +1,26 @@
-"""Fused supersample -> Chebyshev deficit -> chi^2 for one draw chunk.
+"""Fused exposure z^2 -> supersample -> Chebyshev deficit -> chi^2 for one
+draw chunk.
 
 Counterpart of the JAX package's ``ops/pallas_core.py::chi2_supersampled``
 (the v2 schedule) and ``chi2_supersampled_v3`` (the time-major v3
-schedule). On a CUDA tensor each launches its hand-written kernel in
-``csrc/chi2_supersampled.cu`` (built with nvcc for sm_90a at first use and
-loaded with ctypes); on a CPU tensor each runs ``chi2_supersampled_plain``,
-the same arithmetic in plain torch. There is no fallback between them.
+schedule). Each schedule has two entry points over one hand-written kernel
+in ``csrc/chi2_supersampled.cu`` (built with nvcc for sm_90a at first use
+and loaded with ctypes), which differ in where the exposure z^2 model
+comes from:
 
-``launches`` and ``launches_v3`` count kernel launches (not plain-path
-calls), so a run can show that its main path went through a kernel.
+* ``chi2_supersampled`` / ``chi2_supersampled_v3`` read it from four
+  (C, n_t) planes q0, q1, q2, front (the TPU kernels' contract);
+* ``chi2_from_orbit`` / ``chi2_from_orbit_v3`` compute it inside the
+  kernel from each draw's orbit and the exposure times (the main path:
+  ``ops/lightcurve.py::_chi2_fused``), so no (C, n_t) tensor is made.
+
+On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
+plain torch version (``chi2_supersampled_plain``,
+``chi2_from_orbit_plain``). There is no fallback between them.
+
+``launches``, ``launches_v3``, ``launches_orbit`` and ``launches_orbit_v3``
+count kernel launches (not plain-path calls), so a run can show which
+kernel its main path went through.
 """
 
 from __future__ import annotations
@@ -21,7 +33,8 @@ from pathlib import Path
 
 import torch
 
-from .fastcore import M_CHEB, cheb_deficit_eval
+from ..core.kepler import projected_z
+from .fastcore import M_CHEB, cheb_deficit_eval, exposure_z2_poly
 
 DRAW_TILE = 256     # v2: C % DRAW_TILE == 0
 DRAW_LANES = 128    # v3: C % DRAW_LANES == 0
@@ -29,6 +42,8 @@ MAX_NODES = 4
 
 launches = 0
 launches_v3 = 0
+launches_orbit = 0
+launches_orbit_v3 = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("chi2_supersampled.cu",)
@@ -78,15 +93,43 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
+        tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int]
         for fn in (lib.chi2_supersampled_launch,
                    lib.chi2_supersampled_v3_launch):
-            fn.argtypes = ([ctypes.c_void_p] * 11
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_void_p])
+            fn.argtypes = [ctypes.c_void_p] * 11 + tail + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.chi2_from_orbit_launch, lib.chi2_from_orbit_v3_launch):
+            fn.argtypes = ([ctypes.c_void_p] * 13 + tail
+                           + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _check_arrays(arrs, shapes, offs, wgts):
+    """Shape, dtype, device and contiguity of each named tensor, and the
+    node count."""
+    first, ref = next(iter(arrs.items()))
+    for name, a in arrs.items():
+        if tuple(a.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, "
+                             f"expected {shapes[name]}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.device != ref.device:
+            raise ValueError(f"{name} is on {a.device}, {first} on "
+                             f"{ref.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (1 <= len(offs) <= MAX_NODES) or len(offs) != len(wgts):
+        raise ValueError(f"need 1..{MAX_NODES} offsets with one weight "
+                         f"each, got {len(offs)} and {len(wgts)}")
+
+
+def _coeff_shapes(C, n_t):
+    return dict(cA=(C, M_CHEB), cB1=(C, M_CHEB), cB2=(C, M_CHEB),
+                seg=(C, 5), g=(C, 1), obs_dev=(1, n_t))
 
 
 def _check(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, offs, wgts,
@@ -96,24 +139,27 @@ def _check(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, offs, wgts,
     C, n_t = q0.shape
     if C % tile:
         raise ValueError(f"chunk {C} must be a multiple of {tile}")
-    shapes = dict(q0=(C, n_t), q1=(C, n_t), q2=(C, n_t), front=(C, n_t),
-                  cA=(C, M_CHEB), cB1=(C, M_CHEB), cB2=(C, M_CHEB),
-                  seg=(C, 5), g=(C, 1), obs_dev=(1, n_t))
-    arrs = dict(q0=q0, q1=q1, q2=q2, front=front, cA=cA, cB1=cB1, cB2=cB2,
-                seg=seg, g=g, obs_dev=obs_dev)
-    for name, a in arrs.items():
-        if tuple(a.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(a.shape)}, "
-                             f"expected {shapes[name]}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
-        if a.device != q0.device:
-            raise ValueError(f"{name} is on {a.device}, q0 on {q0.device}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not (1 <= len(offs) <= MAX_NODES) or len(offs) != len(wgts):
-        raise ValueError(f"need 1..{MAX_NODES} offsets with one weight "
-                         f"each, got {len(offs)} and {len(wgts)}")
+    _check_arrays(dict(q0=q0, q1=q1, q2=q2, front=front, cA=cA, cB1=cB1,
+                       cB2=cB2, seg=seg, g=g, obs_dev=obs_dev),
+                  dict(q0=(C, n_t), q1=(C, n_t), q2=(C, n_t),
+                       front=(C, n_t), **_coeff_shapes(C, n_t)), offs, wgts)
+
+
+def _check_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
+                 offs, wgts, ns, tile):
+    if time.dim() != 1 or P.dim() != 1:
+        raise ValueError(f"time and P must be 1-d, got {tuple(time.shape)} "
+                         f"and {tuple(P.shape)}")
+    n_t, C = time.shape[0], P.shape[0]
+    if C % tile:
+        raise ValueError(f"chunk {C} must be a multiple of {tile}")
+    _check_arrays(dict(time=time, P=P, a_R=a_R, inc=inc, e=e, w=w, cA=cA,
+                       cB1=cB1, cB2=cB2, seg=seg, g=g, obs_dev=obs_dev),
+                  dict(time=(n_t,), P=(C,), a_R=(C,), inc=(C,), e=(C,),
+                       w=(C,), **_coeff_shapes(C, n_t)), offs, wgts)
+    if ns < 1 or (ns == 1 and (offs, wgts) != ((0.0,), (1.0,))):
+        raise ValueError(f"ns = {ns}: ns = 1 takes the one node offs = (0,), "
+                         f"wgts = (1,), got {offs} and {wgts}")
 
 
 def chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg, g,
@@ -134,21 +180,20 @@ def chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg, g,
         obs_dev * obs_dev)
 
 
-def _launch(name, planes, cA, cB1, cB2, seg, g, obs_dev, C, n_t, offs,
-            wgts):
-    """Launch one kernel of the library on the current stream; raises if
-    the launch is refused."""
+def _launch(name, arrays, C, n_t, offs, wgts, *flags):
+    """Launch one kernel of the library on the current stream: the device
+    pointers of ``arrays`` and the output, then C, n_t, the nodes and
+    ``flags``; raises if the launch is refused."""
     lib = _load()
-    out = torch.empty((C,), dtype=torch.float32, device=cA.device)
+    out = torch.empty((C,), dtype=torch.float32, device=arrays[0].device)
     offs_h = (ctypes.c_float * len(offs))(*offs)
     wgts_h = (ctypes.c_float * len(wgts))(*wgts)
-    with torch.cuda.device(cA.device):
+    with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"{name}_launch")(
-            *(p.data_ptr() for p in planes), cA.data_ptr(), cB1.data_ptr(),
-            cB2.data_ptr(), seg.data_ptr(), g.data_ptr(), obs_dev.data_ptr(),
-            out.data_ptr(), C, n_t, ctypes.addressof(offs_h),
-            ctypes.addressof(wgts_h), len(offs), stream)
+            *(a.data_ptr() for a in arrays), out.data_ptr(), C, n_t,
+            ctypes.addressof(offs_h), ctypes.addressof(wgts_h), len(offs),
+            *flags, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
@@ -190,8 +235,9 @@ def chi2_supersampled(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, *,
     if not _device_path(q0):
         return chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg,
                                        g, obs_dev, offs=offs, wgts=wgts)
-    out = _launch("chi2_supersampled", (q0, q1, q2, front), cA, cB1, cB2,
-                  seg, g, obs_dev, *q0.shape, offs, wgts)
+    out = _launch("chi2_supersampled", (q0, q1, q2, front, cA, cB1, cB2,
+                                        seg, g, obs_dev), *q0.shape, offs,
+                  wgts)
     launches += 1
     return out
 
@@ -208,8 +254,8 @@ def launch_v3(planes_t, cA, cB1, cB2, seg, g, obs_dev, *, offs, wgts):
     global launches_v3
     offs, wgts = _nodes(offs, wgts)
     n_t, C = planes_t[0].shape
-    out = _launch("chi2_supersampled_v3", planes_t, cA, cB1, cB2, seg, g,
-                  obs_dev, C, n_t, offs, wgts)
+    out = _launch("chi2_supersampled_v3", (*planes_t, cA, cB1, cB2, seg, g,
+                                           obs_dev), C, n_t, offs, wgts)
     launches_v3 += 1
     return out
 
@@ -228,3 +274,76 @@ def chi2_supersampled_v3(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev,
                                        g, obs_dev, offs=offs, wgts=wgts)
     return launch_v3(time_major(q0, q1, q2, front), cA, cB1, cB2, seg, g,
                      obs_dev, offs=offs, wgts=wgts)
+
+
+def orbit_planes(time, P, a_R, inc, e, w, ns):
+    """The exposure z^2 model as four contiguous (C, n_t) planes (q0, q1,
+    q2, front as float32), as the orbit kernels compute it per point:
+    ``exposure_z2_poly`` for ns > 1, ``projected_z`` (q0 = z^2, q1 = q2 =
+    0) for ns = 1."""
+    if ns > 1:
+        q0, q1, q2, front = exposure_z2_poly(time, 0.0, P, a_R, inc, e, w)
+    else:
+        z, front = projected_z(time[None, :], 0.0, P[:, None], a_R[:, None],
+                               inc[:, None], e[:, None], w[:, None])
+        q0 = z * z
+        q1 = torch.zeros_like(q0)
+        q2 = torch.zeros_like(q0)
+    return (q0.contiguous(), q1.contiguous(), q2.contiguous(),
+            front.to(q0.dtype))
+
+
+def chi2_from_orbit_plain(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
+                          obs_dev, *, offs, wgts, ns):
+    """Plain torch version of both orbit kernels (any device): the planes of
+    ``orbit_planes``, then ``chi2_supersampled_plain``."""
+    return chi2_supersampled_plain(*orbit_planes(time, P, a_R, inc, e, w, ns),
+                                   cA, cB1, cB2, seg, g, obs_dev, offs=offs,
+                                   wgts=wgts)
+
+
+def chi2_from_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
+                    *, offs, wgts, ns):
+    """chi^2 (unnormalized by sigma) for one draw chunk, v2 schedule, with
+    the exposure z^2 model computed inside the kernel.
+
+    Args (all float32, contiguous, on one device):
+        time: (n_t,) exposure centres.
+        P, a_R, inc, e, w: (C,) each draw's orbit (transit epoch 0).
+        cA, cB1, cB2, seg, g, obs_dev: as ``chi2_supersampled``.
+        offs, wgts: exposure quadrature nodes and weights (1 to 4 floats).
+        ns: supersamples per exposure; ns > 1 takes the Taylor z^2 model
+            (``exposure_z2_poly``) at the nodes, ns = 1 the exact
+            ``projected_z`` at the one node offs = (0,), wgts = (1,).
+    Returns:
+        (C,) sum of squared residuals (divide by sigma^2 outside).
+    C must be a multiple of 256. A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel.
+    """
+    global launches_orbit
+    offs, wgts = _nodes(offs, wgts)
+    args = (time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev)
+    _check_orbit(*args, offs, wgts, ns, DRAW_TILE)
+    if not _device_path(P):
+        return chi2_from_orbit_plain(*args, offs=offs, wgts=wgts, ns=ns)
+    out = _launch("chi2_from_orbit", args, P.shape[0], time.shape[0], offs,
+                  wgts, int(ns == 1))
+    launches_orbit += 1
+    return out
+
+
+def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
+                       obs_dev, *, offs, wgts, ns):
+    """chi^2 for one draw chunk, v3 schedule (one thread per draw): the same
+    arguments, checks and result as ``chi2_from_orbit``, with C a multiple
+    of 128."""
+    global launches_orbit_v3
+    offs, wgts = _nodes(offs, wgts)
+    args = (time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev)
+    _check_orbit(*args, offs, wgts, ns, DRAW_LANES)
+    if not _device_path(P):
+        return chi2_from_orbit_plain(*args, offs=offs, wgts=wgts, ns=ns)
+    out = _launch("chi2_from_orbit_v3", args, P.shape[0], time.shape[0],
+                  offs, wgts, int(ns == 1))
+    launches_orbit_v3 += 1
+    return out

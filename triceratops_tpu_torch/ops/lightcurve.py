@@ -11,11 +11,13 @@ obs_dev + g * deficit, with obs_dev = flux - 1 formed on the host in f64.
 Paths per call:
 
 * ``backend="auto"`` (default, fast): the fused chi^2 of
-  ``ops/chi2_core.py`` fed by the tabulated coefficients and the exposure
-  z^2 model. On a CUDA tensor that is a hand-written kernel, on a CPU
-  tensor its plain torch version. ``CHI2_SCHEDULE`` picks the kernel: the
+  ``ops/chi2_core.py`` straight from the tabulated coefficients and each
+  draw's orbit (``chi2_from_orbit``): on a CUDA tensor a hand-written
+  kernel that computes the exposure z^2 model per point itself, in draw
+  chunks of up to 2^20 (``orbit_chunk``); on a CPU tensor its plain torch
+  version, in ``draw_chunk``'s chunks. ``CHI2_SCHEDULE`` picks the kernel: the
   v2 schedule (default) or, with ``TRICERATOPS_PALLAS_V=3`` in the
-  environment when this module is imported, the time-major v3 one.
+  environment when this module is imported, the v3 one.
 * ``backend="torch"``: the unfused plain-torch fast path
   (``_mean_deficit_fast``), which materializes the deficit.
 * ``exact=True``: a full Kepler solve and exact kernel per supersample.
@@ -45,9 +47,15 @@ SEC_GRID = np.linspace(-0.05, 0.05, 25)
 LN2PI = float(np.log(2.0 * np.pi))
 
 # chi^2 kernel schedule, read once at import as the JAX package reads its
-# Pallas schedule: "2" (chi2_core.chi2_supersampled) or "3"
-# (chi2_core.chi2_supersampled_v3)
+# Pallas schedule: "2" (chi2_core.chi2_from_orbit) or "3"
+# (chi2_core.chi2_from_orbit_v3)
 CHI2_SCHEDULE = os.environ.get("TRICERATOPS_PALLAS_V", "2")
+
+# Largest draw chunk of the orbit kernels on a CUDA tensor. No (C, n_t)
+# tensor is made there: the per-chunk tensors are (C, 18)-sized and the EB
+# veto's (25, C), ~2.6 GiB of device memory at peak for a 1e6-draw chunk,
+# so a 1e6-draw core runs as one launch and larger N stays bounded
+ORBIT_CHUNK_MAX = 1 << 20
 
 _GL_EXPO_MAX = 4
 
@@ -132,29 +140,22 @@ def _mean_deficit(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns,
 def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
                 n_t, ns):
     """chi^2 of one chunk straight from per-draw parameters through
-    ``chi2_core.chi2_supersampled`` or, under ``CHI2_SCHEDULE == "3"``,
-    ``chi2_core.chi2_supersampled_v3`` (a kernel on CUDA, the plain
-    version on CPU)."""
+    ``chi2_core.chi2_from_orbit`` or, under ``CHI2_SCHEDULE == "3"``,
+    ``chi2_core.chi2_from_orbit_v3`` (a kernel on CUDA, the plain version
+    on CPU): GL exposure nodes and the Taylor z^2 model for ns > 1, the
+    exact projected separation at one node for ns = 1."""
     cA, cB1, cB2, zsplit, zmid, invA, invB1, invB2 = deficit_coeffs(k, u1, u2)
     if ns > 1:
-        q0, q1, q2, front = exposure_z2_poly(time, exptime / 2.0, P, a_R,
-                                             inc, e, w)
         offs, wgt = _gl_exposure_nodes(exptime, ns)
     else:
-        z, front = projected_z(time[None, :], 0.0, P[:, None], a_R[:, None],
-                               inc[:, None], e[:, None], w[:, None])
-        q0 = z * z
-        q1 = torch.zeros_like(q0)
-        q2 = torch.zeros_like(q0)
         offs, wgt = np.zeros(1, np.float32), np.ones(1, np.float32)
     seg = torch.stack([zsplit, zmid, invA, invB1, invB2], dim=1)
-    fn = (chi2_core.chi2_supersampled_v3 if CHI2_SCHEDULE == "3"
-          else chi2_core.chi2_supersampled)
-    return fn(
-        q0.contiguous(), q1.contiguous(), q2.contiguous(),
-        front.to(q0.dtype), cA.contiguous(), cB1.contiguous(),
-        cB2.contiguous(), seg, g[:, None].contiguous(),
-        obs_dev[None, :].contiguous(), offs=offs, wgts=wgt)
+    fn = (chi2_core.chi2_from_orbit_v3 if CHI2_SCHEDULE == "3"
+          else chi2_core.chi2_from_orbit)
+    return fn(*(x.contiguous() for x in (time, P, a_R, inc, e, w, cA, cB1,
+                                         cB2)),
+              seg, g[:, None].contiguous(), obs_dev[None, :].contiguous(),
+              offs=offs, wgts=wgt, ns=ns)
 
 
 def _sigma_terms(sigma):
@@ -181,23 +182,48 @@ def _kernel_chunk(chunk):
     return -(-chunk // tile) * tile
 
 
+def orbit_chunk(N: int) -> int:
+    """Draw chunk of the orbit kernels on a CUDA tensor, whatever n_t: N
+    split into ceil(N / 2^20) near-equal chunks, each rounded up to a
+    multiple of 256 (both schedules' draw multiple), so N <= 2^20 runs as
+    one chunk (1000192 draws at N = 1e6)."""
+    n_chunks = max(1, -(-N // ORBIT_CHUNK_MAX))
+    per = -(-max(N, 1) // n_chunks)
+    return -(-per // chi2_core.DRAW_TILE) * chi2_core.DRAW_TILE
+
+
+def _core_chunk(chunk, N, time, n_t, ns, exact, backend):
+    """The draw chunk a core runs: the caller's ``chunk`` if given, else
+    ``orbit_chunk(N)`` where the orbit kernels run (a CUDA tensor under
+    ``backend="auto"``, not ``exact``), which make no (chunk, n_t) tensor,
+    and ``draw_chunk(n_t, ns)`` elsewhere, whose (chunk, n_t) tensors it
+    bounds. Under ``backend="auto"`` it is rounded up to the kernel's draw
+    multiple."""
+    if chunk is None:
+        orbit = (backend == "auto" and not exact
+                 and time.device.type == "cuda")
+        chunk = orbit_chunk(N) if orbit else draw_chunk(n_t, ns)
+    return _kernel_chunk(chunk) if backend == "auto" else chunk
+
+
 def _check_backend(backend):
     if backend not in ("auto", "torch"):
         raise ValueError(f"backend must be 'auto' or 'torch', got {backend!r}")
 
 
 def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
-               *, exptime: float, n_t: int, ns: int, chunk: int = 4096,
-               exact: bool = False, backend: str = "auto"):
+               *, exptime: float, n_t: int, ns: int,
+               chunk: int | None = None, exact: bool = False,
+               backend: str = "auto"):
     """Transiting-planet family log-likelihoods for N draws.
 
     Returns lnL (N,) = -0.5 ln 2pi - ln sigma - 0.5 chi^2 for masked-in
-    draws, -inf otherwise (reference marginal_likelihoods.py:117-137)."""
+    draws, -inf otherwise (reference marginal_likelihoods.py:117-137).
+    ``chunk`` (draws per step) is picked by ``_core_chunk`` unless given."""
     _check_backend(backend)
     N = k.shape[0]
     inv_sig2, ln_sigma = _sigma_terms(sigma)
-    if backend == "auto":
-        chunk = _kernel_chunk(chunk)
+    chunk = _core_chunk(chunk, N, time, n_t, ns, exact, backend)
     parts = _pad_chunk([k, P, a_R, inc, e, w, u1, u2, g, mask], N, chunk)
     out = torch.empty((parts[0].shape[0], chunk), dtype=time.dtype,
                       device=time.device)
@@ -212,8 +238,8 @@ def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
 
 def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
            g_pri, g_sec, mask, *, exptime: float, n_t: int, ns: int,
-           chunk: int = 4096, apply_veto: bool = True, exact: bool = False,
-           backend: str = "auto"):
+           chunk: int | None = None, apply_veto: bool = True,
+           exact: bool = False, backend: str = "auto"):
     """Eclipsing-binary family log-likelihoods for N draws.
 
     k is the (quirk-adjusted) primary radius ratio, ksec the secondary
@@ -221,12 +247,11 @@ def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
     sigma are excluded (ref likelihoods.py:535-538); the twin branch
     passes apply_veto=False. The deficit is monotone non-increasing in z,
     so the 25-point secondary scan's maximum deficit is one exact kernel
-    evaluation at the minimum in-front z."""
+    evaluation at the minimum in-front z. ``chunk`` as in ``lnL_planet``."""
     _check_backend(backend)
     N = k.shape[0]
     inv_sig2, ln_sigma = _sigma_terms(sigma)
-    if backend == "auto":
-        chunk = _kernel_chunk(chunk)
+    chunk = _core_chunk(chunk, N, time, n_t, ns, exact, backend)
     sec_grid = torch.as_tensor(SEC_GRID, dtype=time.dtype, device=time.device)
     parts = _pad_chunk([k, ksec, P, a_R, inc, e, w, u1, u2, g_pri, g_sec,
                         mask], N, chunk)

@@ -27,7 +27,6 @@ from ..constants import G, MSUN, RSUN
 from ..funcs import file_to_contrast_curve, trilegal_results
 from ..populations.ldc import lookup_target, grid_at_Z, lookup_stars
 from ..populations.molusc import load_molusc_qs
-from ..ops import lightcurve
 from ..ops.lightcurve import lnL_planet, lnL_eb
 from . import engine as eng
 
@@ -58,15 +57,14 @@ def _p_bounds(P_orb):
     return F32(arr[0]), F32(arr[-1])
 
 
-def _lc(time, flux, nsamples, device):
-    """(time, obs_dev, n_t, chunk): float32 device tensors of the curve,
+def _lc(time, flux, device):
+    """(time, obs_dev, n_t): float32 device tensors of the curve,
     with obs_dev = flux - 1 formed in float64 on the host."""
     time = np.asarray(time, dtype=np.float64)
     obs_dev = (np.asarray(flux, dtype=np.float64) - 1.0).astype(F32)
     n_t = len(time)
-    chunk = lightcurve.draw_chunk(n_t, nsamples)
     return (torch.as_tensor(time.astype(F32), device=device),
-            torch.as_tensor(obs_dev, device=device), n_t, chunk)
+            torch.as_tensor(obs_dev, device=device), n_t)
 
 
 def _logg(M_s, R_s):
@@ -183,7 +181,7 @@ def lnZ_TTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z,
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
     u1, u2 = lookup_target(Z, Teff, _logg(M_s, R_s), mission)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     d = eng.sample_planet_target(gen, P_lo, P_hi, F32(M_s), F32(R_s), N=N,
                                  flatpriors=flatpriors,
                                  stratified=importance_sampling)
@@ -191,8 +189,7 @@ def lnZ_TTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z,
     lnL = lnL_planet(t, obs_dev, F32(sigma), d["k"], d["P"], d["a_R"],
                      d["inc_rad"], d["eccs"], d["w_rad"], u1a, u2a,
                      torch.ones((N,), device=device), d["mask"],
-                     exptime=exptime, n_t=n_t, ns=nsamples, chunk=chunk,
-                     backend=backend)
+                     exptime=exptime, n_t=n_t, ns=nsamples, backend=backend)
     lnZ, g = eng.run_finalize(lnL, d["lnw"],
                               _gd(d, "P", "incs", "b", "rps", "eccs", "argps"))
     return _res(lnZ, {"P_orb": g["P"], "inc": g["incs"], "b": g["b"],
@@ -209,14 +206,14 @@ def _twin_n(N, importance_sampling, div=eng.TWIN_DIV):
     return max(N // div, 1) if importance_sampling else 0
 
 
-def _eb_lnZ_pair(d, t, obs_dev, sigma, u1a, u2a, exptime, n_t, ns, chunk,
+def _eb_lnZ_pair(d, t, obs_dev, sigma, u1a, u2a, exptime, n_t, ns,
                  backend):
     """Normal (veto on) and twin (veto off, 2P) EB log-likelihoods; the
     twin branch is read from d['twin']."""
     lnL = lnL_eb(t, obs_dev, sigma, d["k"], d["ksec"], d["P"], d["a_R"],
                  d["inc_rad"], d["eccs"], d["w_rad"], u1a, u2a,
                  d["g_pri"], d["g_sec"], d["mask"],
-                 exptime=exptime, n_t=n_t, ns=ns, chunk=chunk,
+                 exptime=exptime, n_t=n_t, ns=ns,
                  apply_veto=True, backend=backend)
     tw = d["twin"]
     nt = tw["P"].shape[0]
@@ -225,7 +222,7 @@ def _eb_lnZ_pair(d, t, obs_dev, sigma, u1a, u2a, exptime, n_t, ns, chunk,
                       tw.get("u1s", u1a[:nt]), tw.get("u2s", u2a[:nt]),
                       tw["g_pri"], tw["g_sec"],
                       tw["mask"], exptime=exptime, n_t=n_t, ns=ns,
-                      chunk=chunk, apply_veto=False, backend=backend)
+                      apply_veto=False, backend=backend)
     return lnL, lnL_twin
 
 
@@ -240,14 +237,14 @@ def lnZ_TEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Z,
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
     u1, u2 = lookup_target(Z, Teff, _logg(M_s, R_s), mission)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     d = eng.sample_teb(gen, P_lo, P_hi, F32(M_s), F32(R_s), F32(Teff),
                        N=N, stratified=importance_sampling,
                        twin_n=_twin_n(N, importance_sampling))
     tw = d["twin"]
     u1a, u2a = _u_arrays(u1, u2, N, device)
     lnL, lnL_twin = _eb_lnZ_pair(d, t, obs_dev, F32(sigma), u1a, u2a,
-                                 exptime, n_t, nsamples, chunk, backend)
+                                 exptime, n_t, nsamples, backend)
     gnames = ("P", "incs", "b", "eccs", "argps", "masses", "radii",
               "fluxratios")
     lnZ, g = eng.run_finalize(lnL, d["lnw"], _gd(d, *gnames))
@@ -305,12 +302,12 @@ def _planet_result(d, lnL, host_fields, **const):
     return _res(lnZ, fields, **const)
 
 
-def _planet_lnL(d, t, obs_dev, sigma, u1a, u2a, exptime, n_t, ns, chunk,
+def _planet_lnL(d, t, obs_dev, sigma, u1a, u2a, exptime, n_t, ns,
                 backend):
     return lnL_planet(t, obs_dev, F32(sigma), d["k"], d["P"], d["a_R"],
                       d["inc_rad"], d["eccs"], d["w_rad"], u1a, u2a, d["g"],
                       d["mask"], exptime=exptime, n_t=n_t, ns=ns,
-                      chunk=chunk, backend=backend)
+                      backend=backend)
 
 
 _COMP_HOST = ("masses_comp", "radii_comp", "u1s", "u2s")
@@ -329,7 +326,7 @@ def lnZ_PTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
     u1, u2 = lookup_target(Z, Teff, _logg(M_s, R_s), mission)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     qs_in, use_molusc = _molusc(molusc_file, M_s, N, device)
     d = eng.sample_ptp(gen, P_lo, P_hi, F32(M_s), F32(R_s), F32(Teff),
@@ -338,7 +335,7 @@ def lnZ_PTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
                        cc_filt=cc_filt, stratified=importance_sampling)
     u1a, u2a = _u_arrays(u1, u2, N, device)
     lnL = _planet_lnL(d, t, obs_dev, sigma, u1a, u2a, exptime, n_t,
-                      nsamples, chunk, backend)
+                      nsamples, backend)
     return _planet_result(d, lnL, None, M_s=_full(M_s), R_s=_full(R_s),
                           u1=_full(u1), u2=_full(u2), M_EB=_zeros(),
                           R_EB=_zeros(), fluxratio_EB=_zeros())
@@ -356,7 +353,7 @@ def lnZ_PEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
     u1, u2 = lookup_target(Z, Teff, _logg(M_s, R_s), mission)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     qs_in, use_molusc = _molusc(molusc_file, M_s, N, device)
     d = eng.sample_peb(gen, P_lo, P_hi, F32(M_s), F32(R_s), F32(Teff),
@@ -366,7 +363,7 @@ def lnZ_PEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
                        twin_n=_twin_n(N, importance_sampling))
     u1a, u2a = _u_arrays(u1, u2, N, device)
     lnL, lnL_twin = _eb_lnZ_pair(d, t, obs_dev, F32(sigma), u1a, u2a,
-                                 exptime, n_t, nsamples, chunk, backend)
+                                 exptime, n_t, nsamples, backend)
     return _eb_results(d, lnL, lnL_twin, None, M_s=_full(M_s),
                        R_s=_full(R_s), u1=_full(u1), u2=_full(u2),
                        R_p=_zeros())
@@ -383,7 +380,7 @@ def lnZ_STP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
     ml.py:869-1077)."""
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     qs_in, use_molusc = _molusc(molusc_file, M_s, N, device)
     u1_tab, u2_tab = (torch.as_tensor(x.astype(F32), device=device)
@@ -393,7 +390,7 @@ def lnZ_STP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
                        flatpriors=flatpriors, use_molusc=use_molusc,
                        cc_filt=cc_filt, stratified=importance_sampling)
     lnL = _planet_lnL(d, t, obs_dev, sigma, d["u1s"], d["u2s"], exptime,
-                      n_t, nsamples, chunk, backend)
+                      n_t, nsamples, backend)
     return _planet_result(d, lnL, _COMP_HOST, M_EB=_zeros(), R_EB=_zeros(),
                           fluxratio_EB=_zeros())
 
@@ -409,7 +406,7 @@ def lnZ_SEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
     of 13000 is bounded by the LDC table's maximum, ml.py:1181)."""
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     qs_in, use_molusc = _molusc(molusc_file, M_s, N, device)
     u1_tab, u2_tab = (torch.as_tensor(x.astype(F32), device=device)
@@ -421,7 +418,7 @@ def lnZ_SEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, plx,
                        twin_n=_twin_n(N, importance_sampling,
                                       eng.TWIN_DIV_SEB))
     lnL, lnL_twin = _eb_lnZ_pair(d, t, obs_dev, F32(sigma), d["u1s"],
-                                 d["u2s"], exptime, n_t, nsamples, chunk,
+                                 d["u2s"], exptime, n_t, nsamples,
                                  backend)
     return _eb_results(d, lnL, lnL_twin, _COMP_HOST, R_p=_zeros())
 
@@ -438,7 +435,7 @@ def lnZ_DTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, Tmag, Jmag, Hmag,
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
     u1, u2 = lookup_target(Z, Teff, _logg(M_s, R_s), mission)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     bg, _ = _prep_background(trilegal_fname, Tmag, Jmag, Hmag, Kmag,
                              mission, filt, False, device)
@@ -448,7 +445,7 @@ def lnZ_DTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, Tmag, Jmag, Hmag,
         stratified=importance_sampling)
     u1a, u2a = _u_arrays(u1, u2, N, device)
     lnL = _planet_lnL(d, t, obs_dev, sigma, u1a, u2a, exptime, n_t,
-                      nsamples, chunk, backend)
+                      nsamples, backend)
     return _planet_result(d, lnL, None, M_s=_full(M_s), R_s=_full(R_s),
                           u1=_full(u1), u2=_full(u2), M_EB=_zeros(),
                           R_EB=_zeros(), fluxratio_EB=_zeros())
@@ -465,7 +462,7 @@ def lnZ_DEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, Tmag, Jmag, Hmag,
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
     u1, u2 = lookup_target(Z, Teff, _logg(M_s, R_s), mission)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     bg, _ = _prep_background(trilegal_fname, Tmag, Jmag, Hmag, Kmag,
                              mission, filt, False, device)
@@ -476,7 +473,7 @@ def lnZ_DEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Z, Tmag, Jmag, Hmag,
         twin_n=_twin_n(N, importance_sampling))
     u1a, u2a = _u_arrays(u1, u2, N, device)
     lnL, lnL_twin = _eb_lnZ_pair(d, t, obs_dev, F32(sigma), u1a, u2a,
-                                 exptime, n_t, nsamples, chunk, backend)
+                                 exptime, n_t, nsamples, backend)
     return _eb_results(d, lnL, lnL_twin, None, M_s=_full(M_s),
                        R_s=_full(R_s), u1=_full(u1), u2=_full(u2),
                        R_p=_zeros())
@@ -493,7 +490,7 @@ def lnZ_BTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Tmag, Jmag, Hmag,
     (reference ml.py:1840-2035)."""
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     bg, _ = _prep_background(trilegal_fname, Tmag, Jmag, Hmag, Kmag,
                              mission, filt, True, device)
@@ -502,7 +499,7 @@ def lnZ_BTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Tmag, Jmag, Hmag,
         flatpriors=flatpriors, has_cc=cc_filt is not None, host_is_bg=True,
         stratified=importance_sampling)
     lnL = _planet_lnL(d, t, obs_dev, sigma, d["u1s"], d["u2s"], exptime,
-                      n_t, nsamples, chunk, backend)
+                      n_t, nsamples, backend)
     return _planet_result(d, lnL, _BG_HOST, M_EB=_zeros(), R_EB=_zeros(),
                           fluxratio_EB=_zeros())
 
@@ -517,7 +514,7 @@ def lnZ_BEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Tmag, Jmag, Hmag,
     """BEB and its BEBx2P twin (reference ml.py:2038-2362)."""
     gen = _generator(gen, device)
     P_lo, P_hi = _p_bounds(P_orb)
-    t, obs_dev, n_t, chunk = _lc(time, flux, nsamples, device)
+    t, obs_dev, n_t = _lc(time, flux, device)
     seps, cons, cc_filt = _cc(contrast_curve_file, filt, device)
     bg, _ = _prep_background(trilegal_fname, Tmag, Jmag, Hmag, Kmag,
                              mission, filt, True, device, need_cc_ratio=True)
@@ -527,6 +524,6 @@ def lnZ_BEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Tmag, Jmag, Hmag,
         cc_filt=cc_filt or "TESS", stratified=importance_sampling,
         twin_n=_twin_n(N, importance_sampling))
     lnL, lnL_twin = _eb_lnZ_pair(d, t, obs_dev, F32(sigma), d["u1s"],
-                                 d["u2s"], exptime, n_t, nsamples, chunk,
+                                 d["u2s"], exptime, n_t, nsamples,
                                  backend)
     return _eb_results(d, lnL, lnL_twin, _BG_HOST, R_p=_zeros())
