@@ -22,7 +22,18 @@ Drives the port's main path once at full size and checks it:
   5. reruns the same seed on the plain torch path and compares per-row lnZ;
   v3. reruns the same seed under the v3 schedule: only the v3 orbit kernel
      launched, per-row lnZ as in 4; then one warm v3 call;
-  6. times three warm calc_probs calls with different seeds (v2).
+  6. times three warm calc_probs calls with different seeds (v2);
+  7. runs the four dormant nearby-star scenarios (lnZ_NTP_unknown and
+     lnZ_NEB_unknown on the TRILEGAL lookalikes of a Tmag 13.2 star,
+     lnZ_NTP_evolved and lnZ_NEB_evolved at R_s = 2.0) at N = 1e6 on v2,
+     on the plain path and under v3, and the empty-population case; checks
+     per-row lnZ across the paths and that only the schedule's orbit
+     kernel launched;
+  8. runs calc_probs_ensemble(n_runs = 3) of the 21-row call: 63 orbit
+     launches, FPP the mean of the runs;
+  9. runs likelihoods.simulate_TP_transit_p and lnL_EB_p over 1e5
+     parameter rows on the card (float64) against the same call on the
+     CPU for the first 256 rows.
 
 Prints a JSON line with the four kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
@@ -66,6 +77,14 @@ FLOPS_ORBIT_POINT = {True: FLOPS_KEPLER + 24, False: FLOPS_KEPLER + 73}
 FLOPS_ORBIT_DRAW = 38
 # device sleep queued before each timed call (~1 ms at the H100's clock)
 LEAD_CYCLES = 2_000_000
+# phase 7: the nearby star whose lookalikes the unknown-host rows draw, and
+# the subgiant radius of the evolved rows
+TMAG_LOOKALIKE = 13.2
+R_EVOLVED = 2.0
+# phase 9: parameter rows of the batch likelihoods, rows checked on the CPU
+N_LIKELIHOOD_ROWS = 100_000
+N_LIKELIHOOD_CHECK = 256
+COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3")
 
 
 class SmokeFailure(Exception):
@@ -427,29 +446,30 @@ def make_run(tr, workdir):
     return t, run
 
 
+def _counts(chi2_core):
+    return {n: getattr(chi2_core, n) for n in COUNTERS}
+
+
+def _reset(chi2_core):
+    for n in COUNTERS:
+        setattr(chi2_core, n, 0)
+
+
+def _only(c, name):
+    """name rose, every other counter stayed at 0."""
+    return c[name] > 0 and all(v == 0 for n, v in c.items() if n != name)
+
+
 def phase_slice(torch, chi2_core, tr, workdir):
     """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
-    stars. Returns each kernel's launches in its path's run (v2 or v3)."""
+    stars. Returns each kernel's launches in its path's run (v2 or v3),
+    run and the target."""
     from triceratops_tpu_torch.ops import lightcurve
 
     t, run = make_run(tr, workdir)
-
-    counters = ("launches", "launches_v3", "launches_orbit",
-                "launches_orbit_v3")
-
-    def counts():
-        return {n: getattr(chi2_core, n) for n in counters}
-
-    def reset():
-        for n in counters:
-            setattr(chi2_core, n, 0)
-
-    def only(c, name):  # name rose, every other counter stayed at 0
-        return c[name] > 0 and all(v == 0 for n, v in c.items() if n != name)
-
-    reset()
+    _reset(chi2_core)
     wall0 = run(1)
-    main_counts = counts()
+    main_counts = _counts(chi2_core)
     lnZ, probs = t.lnZ.copy(), t.probs["prob"].to_numpy()
     names = t.probs["scenario"].values
     print(f"phase 4: calc_probs N={N_DRAWS} nsamples={NSAMPLES}, "
@@ -457,7 +477,7 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{main_counts}; FPP {t.FPP:.6g}, NFPP {t.NFPP:.6g}")
     print("phase 4: lnZ " + ", ".join(
         f"{n}={v:.4f}" for n, v in zip(names, lnZ)))
-    check(only(main_counts, "launches_orbit"),
+    check(_only(main_counts, "launches_orbit"),
           f"the main path must launch only the v2 orbit kernel: "
           f"{main_counts}")
     check(len(lnZ) == 21, f"{len(lnZ)} rows, expected 21")
@@ -468,9 +488,10 @@ def phase_slice(torch, chi2_core, tr, workdir):
     check(int(np.argmax(probs)) == 0,
           f"TP is not the most probable row: {names[np.argmax(probs)]}")
 
-    reset()
+    _reset(chi2_core)
     wall_plain = run(1, backend="torch")
-    check(not any(counts().values()), "the plain path launched a kernel")
+    check(not any(_counts(chi2_core).values()),
+          "the plain path launched a kernel")
     dz = np.abs(t.lnZ - lnZ)
     print(f"phase 5: plain torch path (same seed, N={N_DRAWS}) "
           f"{wall_plain:.3f} s; per-row |lnZ kernel - lnZ plain| max "
@@ -479,9 +500,9 @@ def phase_slice(torch, chi2_core, tr, workdir):
 
     lightcurve.CHI2_SCHEDULE = "3"
     try:
-        reset()
+        _reset(chi2_core)
         wall_v3 = run(1)
-        v3_counts = counts()
+        v3_counts = _counts(chi2_core)
         dz3 = np.abs(t.lnZ - lnZ)
         wall_v3_warm = run(5)
     finally:
@@ -489,7 +510,7 @@ def phase_slice(torch, chi2_core, tr, workdir):
     print(f"phase v3: same seed under the v3 schedule {wall_v3:.3f} s, "
           f"warm (seed 5) {wall_v3_warm:.4f} s; launches {v3_counts}; "
           f"per-row |lnZ v3 - lnZ v2| max {dz3.max():.3g}")
-    check(only(v3_counts, "launches_orbit_v3"),
+    check(_only(v3_counts, "launches_orbit_v3"),
           f"the v3 schedule must launch only the v3 orbit kernel: "
           f"{v3_counts}")
     check(dz3.max() < 1e-2, f"v3 and v2 lnZ differ: {dz3}")
@@ -505,7 +526,194 @@ def phase_slice(torch, chi2_core, tr, workdir):
     return dict(chi2_supersampled=main_counts["launches"],
                 chi2_supersampled_v3=v3_counts["launches_v3"],
                 chi2_from_orbit=main_counts["launches_orbit"],
-                chi2_from_orbit_v3=v3_counts["launches_orbit_v3"]), run
+                chi2_from_orbit_v3=v3_counts["launches_orbit_v3"]), run, t
+
+
+def _lnz_rows(res):
+    """Per-row lnZ of a scenario result: one dict, or (res, res_twin)."""
+    rows = (res,) if isinstance(res, dict) else res
+    return np.array([float(r["lnZ"]) for r in rows])
+
+
+def phase_dormant(torch, chi2_core, workdir):
+    """Phase 7: the four dormant scenarios on the TOI-465-like curve at
+    N = 1e6, each with one seed on v2, on the plain path and under v3.
+    Gates per row: |lnZ kernel - lnZ plain| and |lnZ v3 - lnZ v2| < 1e-2,
+    only the schedule's orbit counter rose, the plain path launched
+    nothing, and every lnZ finite but one: with R_s = 2.0 the logg = 3
+    host weighs 0.146 Msun, every EB draw's flux ratio exceeds 1.5 sigma
+    and the secondary veto empties NEB_evolved's normal row (as in the
+    JAX package, tests/test_torch_dormant.py), which must then be -inf on
+    all three paths; so NEB_evolved also runs at sigma = 3e-2, where the
+    veto keeps draws. An empty lookalike population (Tmag = -5) returns
+    lnZ = -inf and launches nothing. Prints each function's warm wall on
+    v2 (a second seed, host clock, ends in a device-to-host copy)."""
+    from triceratops_tpu_torch.ops import lightcurve
+    from triceratops_tpu_torch.scenarios import api
+
+    _, time_, flux, sigma, P = toi465_field()
+    tri = f"{workdir}/trilegal.csv"
+    _, n_pos = api._prep_lookalikes(tri, TMAG_LOOKALIKE, "TESS", "cuda")
+    print(f"phase 7: {n_pos} TRILEGAL lookalikes of a Tmag "
+          f"{TMAG_LOOKALIKE} star (N_pos)")
+    check(n_pos > 0, "the lookalike population is empty")
+    kw = dict(N=N_DRAWS, nsamples=NSAMPLES, device="cuda")
+    calls = (
+        ("NTP_unknown", api.lnZ_NTP_unknown,
+         (time_, flux, sigma, P, TMAG_LOOKALIKE, tri)),
+        ("NEB_unknown", api.lnZ_NEB_unknown,
+         (time_, flux, sigma, P, TMAG_LOOKALIKE, tri)),
+        ("NTP_evolved", api.lnZ_NTP_evolved,
+         (time_, flux, sigma, P, R_EVOLVED, 5200.0, 0.0)),
+        ("NEB_evolved", api.lnZ_NEB_evolved,
+         (time_, flux, sigma, P, R_EVOLVED, 5200.0, 0.0)),
+        ("NEB_evolved sigma=3e-2", api.lnZ_NEB_evolved,
+         (time_, flux, 3e-2, P, R_EVOLVED, 5200.0, 0.0)))
+
+    def gen(seed):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        return g
+
+    walls = {}
+    for name, fn, args in calls:
+        _reset(chi2_core)
+        lz = _lnz_rows(fn(*args, gen=gen(1), **kw))
+        c2 = _counts(chi2_core)
+        _reset(chi2_core)
+        lz_plain = _lnz_rows(fn(*args, gen=gen(1), backend="torch", **kw))
+        c_plain = _counts(chi2_core)
+        lightcurve.CHI2_SCHEDULE = "3"
+        try:
+            _reset(chi2_core)
+            lz3 = _lnz_rows(fn(*args, gen=gen(1), **kw))
+            c3 = _counts(chi2_core)
+        finally:
+            lightcurve.CHI2_SCHEDULE = "2"
+        t0 = time.perf_counter()
+        _lnz_rows(fn(*args, gen=gen(2), **kw))
+        walls[name] = time.perf_counter() - t0
+        vetoed = np.zeros(len(lz), bool)
+        if name == "NEB_evolved":
+            vetoed[0] = True
+        d_plain = np.abs(lz[~vetoed] - lz_plain[~vetoed])
+        d3 = np.abs(lz3[~vetoed] - lz[~vetoed])
+        print(f"phase 7: {name}: lnZ {lz.tolist()} (v2), plain "
+              f"{lz_plain.tolist()}, v3 {lz3.tolist()}; launches v2 {c2}, "
+              f"v3 {c3}; warm wall {walls[name]:.4f} s")
+        check(np.isfinite(lz[~vetoed]).all(), f"{name}: non-finite lnZ {lz}")
+        for other in (lz_plain, lz3):
+            check(np.isneginf(other[vetoed]).all()
+                  and np.isneginf(lz[vetoed]).all(),
+                  f"{name}: the vetoed row is not -inf on every path")
+        check(d_plain.max() < 1e-2, f"{name}: kernel and plain lnZ differ "
+              f"by {d_plain}")
+        check(d3.max() < 1e-2, f"{name}: v3 and v2 lnZ differ by {d3}")
+        check(_only(c2, "launches_orbit"),
+              f"{name}: v2 must launch only the v2 orbit kernel: {c2}")
+        check(_only(c3, "launches_orbit_v3"),
+              f"{name}: v3 must launch only the v3 orbit kernel: {c3}")
+        check(not any(c_plain.values()),
+              f"{name}: the plain path launched a kernel: {c_plain}")
+    _reset(chi2_core)
+    for fn in (api.lnZ_NTP_unknown, api.lnZ_NEB_unknown):
+        res = fn(time_, flux, sigma, P, -5.0, tri, gen=gen(1), **kw)
+        check(isinstance(res, dict) and np.isneginf(res["lnZ"]),
+              f"empty population: {res}")
+    check(not any(_counts(chi2_core).values()),
+          f"the empty population launched a kernel: {_counts(chi2_core)}")
+    print("phase 7: empty lookalike population (Tmag -5): lnZ = -inf, no "
+          "launch")
+    return walls
+
+
+def phase_ensemble(chi2_core, t):
+    """Phase 8: calc_probs_ensemble(n_runs = 3) of the 21-row call on v2:
+    21 orbit launches per run, FPP the mean of the runs."""
+    _, time_, flux, sigma, P = toi465_field()
+    _reset(chi2_core)
+    t0 = time.perf_counter()
+    t.calc_probs_ensemble(time_, flux, sigma, P, n_runs=3, key=11,
+                          N=N_DRAWS, nsamples=NSAMPLES, verbose=0,
+                          device="cuda")
+    wall = time.perf_counter() - t0
+    c = _counts(chi2_core)
+    print(f"phase 8: calc_probs_ensemble n_runs=3: {wall:.4f} s; FPP "
+          f"{t.FPP:.6g} +- {t.FPP_std:.3g} (runs {t.FPP_runs.tolist()}), "
+          f"NFPP {t.NFPP:.6g}; launches {c}")
+    check(t.FPP == float(t.FPP_runs.mean()), "FPP is not the runs' mean")
+    check(np.isfinite(t.FPP_std), f"FPP_std {t.FPP_std}")
+    check(_only(c, "launches_orbit") and c["launches_orbit"] == 63,
+          f"the ensemble must make 63 v2 orbit launches: {c}")
+    return wall
+
+
+def _likelihood_rows(n, seed=0):
+    """n TP parameter rows and n EB parameter rows about the TOI-465-like
+    target (the inputs of tests/test_torch_likelihoods.py, widened)."""
+    from triceratops_tpu_torch.constants import G, MSUN
+
+    rng = np.random.default_rng(seed)
+    R_s = rng.uniform(0.7, 1.4, n)
+    M = rng.uniform(0.6, 1.5, n)
+    P = rng.uniform(2.5, 4.0, n)
+    common = dict(
+        P_orb=P, inc=rng.uniform(86.5, 90.0, n),
+        a=((G * M * MSUN) / (4 * np.pi**2) * (P * 86400) ** 2) ** (1 / 3),
+        R_s=R_s, u1=rng.uniform(0.2, 0.5, n), u2=rng.uniform(0.1, 0.3, n),
+        ecc=rng.uniform(0.0, 0.5, n), argp=rng.uniform(0.0, 360.0, n),
+        companion_fluxratio=rng.uniform(0.0, 0.6, n))
+    tp = [rng.uniform(1.0, 16.0, n)] + list(common.values())
+    eb = ([R_s * rng.uniform(0.1, 1.0, n), 10 ** rng.uniform(-5, -0.5, n)]
+          + list(common.values()))
+    return tp, eb
+
+
+def phase_likelihoods(torch):
+    """Phase 9: simulate_TP_transit_p and lnL_EB_p over 1e5 parameter rows
+    on the card (float64, the 100-point curve, nsamples = 20) against the
+    same call on the CPU for the first 256 rows: flux within 1e-9, lnL
+    within 1e-8 relative with the same veto pattern. Prints the card's
+    time (host clock, numpy in and out)."""
+    from triceratops_tpu_torch import likelihoods as lk
+
+    _, time_, flux, sigma, _ = toi465_field()
+    tp, eb = _likelihood_rows(N_LIKELIHOOD_ROWS)
+    m = N_LIKELIHOOD_CHECK
+    kw = dict(nsamples=NSAMPLES)
+    lk.simulate_TP_transit_p(time_, *(a[:m] for a in tp), device="cuda",
+                             **kw)       # first call: CUDA context warm-up
+    out = {}
+    for name, fn, args, pre in (
+            ("simulate_TP_transit_p", lk.simulate_TP_transit_p, tp, ()),
+            ("lnL_EB_p", lk.lnL_EB_p, eb, (flux, sigma))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(time_, *pre, *args, device="cuda", **kw)
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = fn(time_, *pre, *(a[:m] for a in args), device="cpu", **kw)
+        head = got[:m]
+        if name == "lnL_EB_p":
+            check(np.array_equal(np.isinf(head), np.isinf(want)),
+                  f"{name}: veto patterns differ")
+            fin = np.isfinite(want)
+            err = float(np.max(np.abs(head[fin] - want[fin])
+                               / np.abs(want[fin]), initial=0.0))
+            check(err < 1e-8 and fin.any() and (~fin).any(),
+                  f"{name}: lnL relative error {err}, "
+                  f"{int(fin.sum())} of {m} rows finite")
+            extra = (f", {int(np.isinf(got).sum())} of "
+                     f"{N_LIKELIHOOD_ROWS} rows vetoed")
+        else:
+            err = float(np.max(np.abs(head - want)))
+            check(err < 1e-9, f"{name}: flux error {err}")
+            extra = ""
+        check(np.all(~np.isnan(got)), f"{name}: NaN in the card's output")
+        print(f"phase 9: {name} over {N_LIKELIHOOD_ROWS} rows x "
+              f"{len(time_)} points x {NSAMPLES} samples on the card: "
+              f"{ms:.1f} ms; max error vs CPU on {m} rows {err:.3g}{extra}")
+        out[name] = ms
+    return out
 
 
 def phase_profile(torch, run, backends=("auto", "torch")):
@@ -600,7 +808,10 @@ def main():
         build_s = phase_build(chi2_core)
         timing = phase_kernel(torch, chi2_core)
         with tempfile.TemporaryDirectory() as workdir:
-            launches, run = phase_slice(torch, chi2_core, tr, workdir)
+            launches, run, t = phase_slice(torch, chi2_core, tr, workdir)
+            phase_dormant(torch, chi2_core, workdir)
+            phase_ensemble(chi2_core, t)
+            phase_likelihoods(torch)
             if "--profile" in sys.argv[1:]:
                 phase_profile(torch, run)
     except SmokeFailure as e:

@@ -10,12 +10,14 @@ and runs chip_smoke.py's profile phase on the kernel path
 under torch.profiler for the kernel launches, device time, idle share,
 CUDA kernel count and host ranges.
 
-    python3 profile_port.py [--tree DIR]
+    python3 profile_port.py [--tree DIR] [--walls]
 
 --tree imports the port (triceratops_tpu_torch) from another checkout,
 e.g. an unpacked earlier commit, so that two trees are profiled by the
-same code in one run. The plain torch path's profile is
-``chip_smoke.py --profile``.
+same code in one run. --walls skips the kernel timing and the profile
+and prints chip_smoke.py's phase 6 instead: three warm calls (seeds 2, 3,
+4) after a first one, and their median. The plain torch path's profile
+is ``chip_smoke.py --profile``.
 """
 
 import argparse
@@ -29,6 +31,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None,
                     help="checkout to import triceratops_tpu_torch from")
+    ap.add_argument("--walls", action="store_true",
+                    help="only the warm walls of chip_smoke.py's phase 6")
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     tree = Path(args.tree).resolve() if args.tree else here
@@ -43,11 +47,17 @@ def main():
 
     smoke.phase_device(torch)
     print(f"profile_port: package {Path(tr.__file__).resolve().parent.parent}")
-    plane_kernel_ms(torch, smoke)
+    if not args.walls:
+        plane_kernel_ms(torch, smoke)
     with tempfile.TemporaryDirectory() as workdir:
         _, run = smoke.make_run(tr, workdir)
         print(f"profile_port: first call {run(1):.3f} s")
-        smoke.phase_profile(torch, run, ("auto",))
+        if args.walls:
+            walls = [run(seed) for seed in (2, 3, 4)]
+            print(f"profile_port: warm calc_probs walls {walls} s, median "
+                  f"{sorted(walls)[1]:.4f} s")
+        else:
+            smoke.phase_profile(torch, run, ("auto",))
     return 0
 
 

@@ -122,14 +122,18 @@ def test_shared_index_draws(shared_uniforms):
 
 
 def test_import_without_jax():
-    """The port imports torch, numpy, scipy and pandas only: importing it with
-    jax made unimportable succeeds and pulls in no triceratops_tpu
-    module."""
+    """The port imports torch, numpy, scipy and pandas only (and matplotlib
+    for its plots): importing it, the likelihoods, the catalogs and the
+    plotting module with jax made unimportable succeeds and pulls in no
+    triceratops_tpu module."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import triceratops_tpu_torch, triceratops_tpu_torch.triceratops\n"
         "import triceratops_tpu_torch.populations.synthetic\n"
+        "import triceratops_tpu_torch.likelihoods\n"
+        "import triceratops_tpu_torch.populations.catalogs\n"
+        "import triceratops_tpu_torch.frontend.plotting\n"
         "bad = [m for m in sys.modules if m == 'triceratops_tpu' or "
         "m.startswith('triceratops_tpu.')]\n"
         "assert not bad, bad\n"

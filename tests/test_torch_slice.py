@@ -156,6 +156,11 @@ def test_calc_probs_before_calc_depths_raises():
         t.calc_probs(time, flux, sigma, P_orb=3.0, N=256, device="cpu")
 
 
-def test_online_constructor_not_ported():
-    with pytest.raises(NotImplementedError, match="from_stars"):
+def test_online_constructor_not_ported(monkeypatch):
+    """The online constructor needs the optional network packages: without
+    lightkurve it raises ImportError and points to target.from_stars."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "lightkurve", None)
+    with pytest.raises(ImportError, match="from_stars"):
         ttarget(1000, [1])

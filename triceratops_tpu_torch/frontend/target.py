@@ -1,13 +1,18 @@
 """The ``target`` user-facing class.
 
-Counterpart of the JAX package's ``frontend/target.py``: offline
-construction (``from_stars``), PSF dilution depths (``calc_depths``) and
-scenario orchestration into FPP/NFPP (``calc_probs``). ``calc_probs`` runs
+Counterpart of the JAX package's ``frontend/target.py`` (reference
+triceratops/triceratops.py:41-1638): the online constructor (TIC and
+FFI-cutout queries) and the offline one (``from_stars``), star edits, PSF
+dilution depths (``calc_depths``), scenario orchestration into FPP/NFPP
+(``calc_probs``, ``calc_probs_ensemble``) and plots. ``calc_probs`` runs
 the target's 15 rows (TP, EB, EBx2P, the bound-companion PTP, PEB, PEBx2P,
 STP, SEB, SEBx2P and the background DTP, DEB, DEBx2P, BTP, BEB, BEBx2P)
 and every nearby star's NTP, NEB and NEBx2P rows on the device. Dropped
 rows get lnZ = -inf; without a TRILEGAL file the background rows get zero
 weight, as in the reference.
+
+The online constructor needs lightkurve, astroquery and astropy, and the
+plots matplotlib; each is imported only where it is used.
 """
 
 from __future__ import annotations
@@ -20,17 +25,91 @@ import torch
 from scipy.special import ndtr
 
 from ..core.numerics import normalize_probabilities
-from ..funcs import renorm_flux
+from ..funcs import renorm_flux, save_trilegal, query_TRILEGAL, get_aperture
 from ..scenarios import api as sc
 
 _RES_FIELDS = ["M_s", "R_s", "u1", "u2", "P_orb", "inc", "b", "R_p", "ecc",
                "argp", "M_EB", "R_EB", "fluxratio_EB", "fluxratio_comp"]
 
+
+def ensemble_seed(key: int, i: int) -> int:
+    """The seed of run i of ``calc_probs_ensemble(key=key)``: the first
+    32-bit word of ``np.random.SeedSequence([key, i])``.
+    ``calc_probs(key=ensemble_seed(key, i))`` reproduces that run."""
+    return int(np.random.SeedSequence([int(key), int(i)])
+               .generate_state(1)[0])
+
+
 class target:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Online target construction (TIC/TessCut queries) is not "
-            "ported; build the target with target.from_stars(...).")
+    def __init__(self, ID: int, sectors, search_radius: int = 10,
+                 mission: str = "TESS", lightkurve_cache_dir=None,
+                 trilegal_fname=None, ra: float = None, dec: float = None,
+                 verify_ssl: bool = True):
+        """Query TIC for the sources around the target and the FFI cutouts
+        (TESS) or target pixel files (Kepler, K2) of each sector
+        (reference triceratops.py:42-263). Needs lightkurve, astroquery
+        and astropy; ``target.from_stars`` builds a target offline.
+        Without ``trilegal_fname`` the TRILEGAL service is queried here
+        and its result saved by the first ``calc_probs``."""
+        if mission not in ("TESS", "Kepler", "K2"):
+            raise ValueError("Introduced invalid mission: " + mission)
+        try:
+            import lightkurve  # noqa: F401
+            from astroquery.mast import Catalogs
+            from astropy.coordinates import SkyCoord
+            import astropy.units as u
+        except ImportError as e:
+            raise ImportError(
+                "Online target construction needs lightkurve/astroquery/"
+                "astropy. Build offline with target.from_stars(...) instead."
+            ) from e
+
+        self.ID = ID
+        self.mission = mission
+        self.sectors = sectors
+        self.search_radius = search_radius
+        self.N_pix = 2 * search_radius + 2
+        pixel_size = (20.25 if mission == "TESS" else 4.0) * u.arcsec
+
+        if mission == "TESS":
+            ticid = ID
+        else:
+            from astroquery.vizier import Vizier
+            if ra is None or dec is None:
+                if mission == "Kepler":
+                    result = (Vizier(columns=["_RA", "_DE"])
+                              .query_constraints(
+                                  KIC=str(ID),
+                                  catalog="J/ApJS/229/30/catalog")[0]
+                              .as_array())
+                    ra, dec = result[0]["_RA"], result[0]["_DE"]
+                else:
+                    result = (Vizier(columns=["RAJ2000", "DEJ2000"])
+                              .query_constraints(ID=str(ID),
+                                                 catalog="IV/34/epic")[0]
+                              .as_array())
+                    ra, dec = result[0]["RAJ2000"], result[0]["DEJ2000"]
+            ticid = Catalogs.query_region(
+                SkyCoord(ra, dec, unit="deg"),
+                radius=search_radius * pixel_size, catalog="TIC")[0]["ID"]
+        df = Catalogs.query_object("TIC" + str(ticid),
+                                   radius=search_radius * pixel_size,
+                                   catalog="TIC")
+        stars = df["ID", "Tmag", "Jmag", "Hmag", "Kmag", "ra", "dec", "mass",
+                   "rad", "Teff", "plx", "disposition",
+                   "duplicate_id"].to_pandas()
+
+        if trilegal_fname is None:
+            self.trilegal_url = query_TRILEGAL(
+                stars["ra"].values[0], stars["dec"].values[0], verbose=0,
+                verify_ssl=verify_ssl)
+            self.trilegal_fname = None
+        else:
+            self.trilegal_fname = trilegal_fname
+            self.trilegal_url = None
+
+        self._fetch_cutouts(stars, lightkurve_cache_dir)
+        self._finish_init(stars)
 
     @classmethod
     def from_stars(cls, stars: pd.DataFrame, ID: int = 0, sectors=(1,),
@@ -41,7 +120,8 @@ class target:
         rad, Teff, plx). ``pix_coords`` is a list (one per sector) of
         (n_stars, 2) pixel coordinates; a centered grid offset by the
         optional "sep (arcsec)" / "PA (E of N)" columns is used when
-        omitted."""
+        omitted. The images are blank (zeros) with their origin at pixel
+        (0, 0)."""
         if mission not in ("TESS", "Kepler", "K2"):
             raise ValueError("Introduced invalid mission: " + mission)
         self = cls.__new__(cls)
@@ -52,6 +132,7 @@ class target:
         self.N_pix = 2 * search_radius + 2
         self.stars = stars.reset_index(drop=True).copy()
         self.trilegal_fname = trilegal_fname
+        self.trilegal_url = None
         n = len(stars)
         if pix_coords is None:
             center = self.N_pix / 2.0
@@ -65,7 +146,131 @@ class target:
                 pc = pc + np.where(np.isfinite(off), off, 0.0)
             pix_coords = [pc for _ in self.sectors]
         self.pix_coords = [np.asarray(p, dtype=float) for p in pix_coords]
+        self.TESS_images = [np.zeros((self.N_pix, self.N_pix))
+                            for _ in self.sectors]
+        self.col0s = [0 for _ in self.sectors]
+        self.row0s = [0 for _ in self.sectors]
         return self
+
+    def _fetch_cutouts(self, stars, lightkurve_cache_dir):
+        """Per-sector mean image, image origin and the stars' pixel
+        coordinates through the cutout's WCS; a sector whose download
+        fails is reported and skipped (reference triceratops.py:148-226).
+        Kepler / K2 pixel files are NaN-padded, centred, to N_pix."""
+        import traceback
+        import lightkurve
+        from astropy.coordinates import SkyCoord
+        from astropy.wcs import WCS
+
+        TESS_images, col0s, row0s, pix_coords = [], [], [], []
+        ra = stars["ra"].values
+        dec = stars["dec"].values
+        cutout_coord = SkyCoord(ra[0], dec[0], unit="deg")
+        for sector in self.sectors:
+            try:
+                if self.mission == "TESS":
+                    print(f"Getting TessCut for sector {sector}")
+                    cuts = lightkurve.search_tesscut(
+                        target=cutout_coord, sector=sector).download_all(
+                        cutout_size=(self.N_pix, self.N_pix))
+                    hdu = cuts[0].hdu
+                    wcs = WCS(hdu[2].header)
+                    TESS_images.append(np.nanmean(hdu[1].data["FLUX"], axis=0))
+                    col0 = hdu[1].header["1CRV4P"]
+                    row0 = hdu[1].header["2CRV4P"]
+                    nrb = ncb = 0
+                else:
+                    print(f"Getting TPF for sector {sector}")
+                    prefix = "KIC " if self.mission == "Kepler" else "EPIC "
+                    kw = ({"quarter": sector} if self.mission == "Kepler"
+                          else {"campaign": sector})
+                    tpf = lightkurve.search_targetpixelfile(
+                        prefix + str(self.ID), mission=self.mission,
+                        **kw).download_all(download_dir=lightkurve_cache_dir)
+                    hdu = tpf[0].hdu
+                    wcs = WCS(hdu[2].header)
+                    image = np.nanmean(hdu[1].data["FLUX"], axis=0)
+                    nrb = (self.N_pix - image.shape[0]) // 2
+                    nra = (self.N_pix - image.shape[0]) - nrb
+                    ncb = (self.N_pix - image.shape[1]) // 2
+                    nca = (self.N_pix - image.shape[1]) - ncb
+                    image = np.pad(image, ((nrb, nra), (ncb, nca)),
+                                   mode="constant", constant_values=np.nan)
+                    TESS_images.append(image)
+                    col0 = hdu[1].header["1CRV4P"] - ncb
+                    row0 = hdu[1].header["2CRV4P"] - nrb
+            except Exception:
+                print(f"Sector {sector} raised exception. "
+                      "Ignoring for validation.")
+                print(traceback.format_exc())
+                continue
+            col0s.append(col0)
+            row0s.append(row0)
+            pc = np.zeros([len(ra), 2])
+            for i in range(len(ra)):
+                pix = wcs.all_world2pix(ra[i], dec[i], 0)
+                pc[i, 0] = col0 + pix[0].item() + ncb
+                pc[i, 1] = row0 + pix[1].item() + nrb
+            pix_coords.append(pc)
+        self.TESS_images = TESS_images
+        self.col0s = col0s
+        self.row0s = row0s
+        self.pix_coords = pix_coords
+
+    def _finish_init(self, stars):
+        """Each star's separation from the target [arcsec] and position
+        angle [deg E of N], rounded to 3 decimals (reference
+        triceratops.py:230-256)."""
+        from astropy.coordinates import SkyCoord
+        import astropy.units as u
+
+        sep, pa = [0], [0]
+        c_t = SkyCoord(stars["ra"].values[0], stars["dec"].values[0],
+                       unit="deg")
+        for i in range(1, len(stars)):
+            c_s = SkyCoord(stars["ra"].values[i], stars["dec"].values[i],
+                           unit="deg")
+            sep.append(np.round(c_t.separation(c_s).to(u.arcsec).value, 3))
+            pa.append(np.round(c_t.position_angle(c_s).to(u.deg).value, 3))
+        stars["sep (arcsec)"] = sep
+        stars["PA (E of N)"] = pa
+        self.stars = stars
+
+    # star-table edits (reference triceratops.py:265-335)
+    def add_star(self, ID: int, Tmag: float, bound: bool):
+        """Add an unresolved star at the target's position; a bound one
+        takes the target's parallax."""
+        if bound:
+            plx = self.stars["plx"].values[0]
+            new_star = pd.DataFrame([[str(ID), Tmag, plx]],
+                                    columns=["ID", "Tmag", "plx"])
+        else:
+            new_star = pd.DataFrame([[str(ID), Tmag]], columns=["ID", "Tmag"])
+        self.stars = pd.concat([self.stars, new_star]).reset_index(drop=True)
+        self.pix_coords = [np.vstack([p, p[:1]]) for p in self.pix_coords]
+
+    def remove_star(self, drop_stars):
+        """Drop stars (by ID) from the analysis."""
+        if np.isscalar(drop_stars):
+            drop_stars = [drop_stars]
+        drop_stars = [str(s) for s in drop_stars]
+        self.stars = self.stars[~self.stars["ID"].astype(str).isin(drop_stars)]
+
+    def update_star(self, ID: int, param: str, value: float):
+        """Set one parameter of one star."""
+        idx = self.stars[self.stars.ID.astype(str) == str(ID)].index
+        self.stars.loc[idx, [param]] = value
+
+    def get_spoc_apertures(self):
+        """The SPOC aperture of each sector, or [] with a notice when one
+        cannot be fetched (reference triceratops.py:337-356)."""
+        aps = []
+        try:
+            for sector in self.sectors:
+                aps.append(get_aperture(self.ID, sector))
+        except Exception:
+            print("No SPOC apertures available.")
+        return aps
 
     def calc_depths(self, tdepth: float, all_ap_pixels=None):
         """Required transit depth per star from the analytic Gaussian-PSF
@@ -137,6 +342,8 @@ class target:
         ``molusc_file``: a MOLUSC posterior replacing the analytic
         companion draw of PTP, PEB, STP and SEB.
         ``key``: None, an int seed, or a ``torch.Generator`` on ``device``.
+        A TRILEGAL query made by the online constructor is saved on the
+        first call (``<ID>_TRILEGAL.csv``) and reused after.
         ``device``: where the Monte-Carlo work runs (default "cuda").
         ``backend``: likelihood path, "auto" (the fused chi^2 kernel on
         CUDA) or "torch" (plain torch). ``lc_window`` (days) crops the
@@ -166,6 +373,10 @@ class target:
             gen = torch.Generator(device=device)
             gen.manual_seed(int(np.random.randint(0, 2**31 - 1))
                             if key is None else int(key))
+        # the TRILEGAL result, saved once (reference triceratops.py:755-764)
+        if self.trilegal_fname is None and self.trilegal_url is not None:
+            fname = save_trilegal(self.trilegal_url, self.ID)
+            self.trilegal_fname = fname if fname else None
         trilegal_ok = bool(self.trilegal_fname)
         if not trilegal_ok and verbose:
             print("No TRILEGAL results available: DTP, DEB, DEBx2P, BTP, "
@@ -336,3 +547,51 @@ class target:
                             + relative_probs[9]), 0.0)
         self.NFPP = (float(np.sum(relative_probs[15:]))
                      if len(relative_probs) > 15 else 0.0)
+
+    def calc_probs_ensemble(self, time, flux_0, flux_err_0, P_orb,
+                            n_runs: int = 20, key=None, **kwargs):
+        """``calc_probs`` over ``n_runs`` independent generators, averaged.
+
+        The reference measures Monte-Carlo scatter by re-running the
+        analysis ~20 times by hand (examples/example.ipynb cell 14). Run i
+        seeds its own ``torch.Generator`` on the device with
+        ``ensemble_seed(key, i)``, the first 32-bit word of
+        ``np.random.SeedSequence([key, i])``, so
+        ``calc_probs(key=ensemble_seed(key, i))`` reproduces it; ``key``
+        is an int, or None for one drawn from numpy's global RNG.
+        ``kwargs`` go to ``calc_probs``. Sets ``FPP`` / ``NFPP`` to the
+        means over the runs, ``FPP_std`` / ``NFPP_std`` and ``FPP_runs`` /
+        ``NFPP_runs``; ``probs`` and the rest hold the last run's."""
+        if key is None:
+            key = int(np.random.randint(0, 2**31 - 1))
+        fpps, nfpps = [], []
+        for i in range(n_runs):
+            self.calc_probs(time, flux_0, flux_err_0, P_orb,
+                            key=ensemble_seed(key, i), **kwargs)
+            fpps.append(self.FPP)
+            nfpps.append(self.NFPP)
+        self.FPP_runs = np.array(fpps)
+        self.NFPP_runs = np.array(nfpps)
+        self.FPP = float(self.FPP_runs.mean())
+        self.NFPP = float(self.NFPP_runs.mean())
+        self.FPP_std = float(self.FPP_runs.std())
+        self.NFPP_std = float(self.NFPP_runs.std())
+
+    def plot_field(self, sector: int = None, ap_pixels=None,
+                   ap_color: str = "red", save: bool = False,
+                   fname: str = None):
+        """Field plot: star positions and the mean image (reference
+        triceratops.py:358-557). Needs matplotlib."""
+        from .plotting import plot_field
+        return plot_field(self, sector=sector, ap_pixels=ap_pixels,
+                          ap_color=ap_color, save=save, fname=fname)
+
+    def plot_fits(self, time: np.ndarray, flux_0: np.ndarray,
+                  flux_err_0: float, save: bool = False, fname: str = None,
+                  device="cuda"):
+        """Best-fit light curve of every row (reference
+        triceratops.py:1487-1638), the models computed on ``device``.
+        Needs matplotlib."""
+        from .plotting import plot_fits
+        return plot_fits(self, time, flux_0, flux_err_0, save=save,
+                         fname=fname, device=device)

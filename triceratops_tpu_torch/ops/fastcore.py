@@ -12,12 +12,14 @@ derivation):
 
 The per-draw coefficients come from the k-tabulated basis (one
 (N, sum_degs) @ (sum_degs, 162) matmul) for float32 inputs and from exact
-kernel nodes plus a DCT for float64 inputs.
+kernel nodes plus a DCT for float64 inputs, unless ``TRICERATOPS_COEFFS``
+forces one of them (``COEFFS_BACKEND``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -27,6 +29,10 @@ from .occult import occult_quad_deficit
 
 _BREAK_SLOPE = 6.0
 _BREAK_FLOOR = 0.02
+
+# coefficient-stage backend, read once at import as the JAX package reads
+# it: "auto" picks by dtype, "exact" / "tab" force one
+COEFFS_BACKEND = os.environ.get("TRICERATOPS_COEFFS", "auto")
 
 _TAB_BREAKS, _TAB_KINDS, _TAB_DEGS, _ = cheb_k_tables()
 _TAB_MAXDEG = int(_TAB_DEGS.max())
@@ -122,7 +128,12 @@ def cheb_deficit_coeffs_tab(k, u1, u2):
 
 def deficit_coeffs(k, u1, u2):
     """Tabulated coefficients for float32 (device) inputs, exact kernel
-    nodes for float64 (reference) inputs."""
+    nodes for float64 (reference) inputs; ``COEFFS_BACKEND`` "exact" or
+    "tab" forces one whatever the dtype."""
+    if COEFFS_BACKEND == "exact":
+        return cheb_deficit_coeffs(k, u1, u2)
+    if COEFFS_BACKEND == "tab":
+        return cheb_deficit_coeffs_tab(k, u1, u2)
     if torch.float64 in (k.dtype, u1.dtype, u2.dtype):
         return cheb_deficit_coeffs(k, u1, u2)
     return cheb_deficit_coeffs_tab(k, u1, u2)

@@ -64,6 +64,18 @@ def _ss_offsets(exptime: float, ns: int):
     return exptime * ((np.arange(ns) + 0.5) / ns - 0.5)
 
 
+def supersample_times(time: np.ndarray, exptime: float,
+                      nsamples: int) -> np.ndarray:
+    """Supersampled exposure grid, an (n_t * nsamples,) host array: each
+    exposure of length ``exptime`` sampled at ``nsamples`` midpoints,
+    exposure-major (reference likelihoods.py:61)."""
+    time = np.asarray(time, dtype=np.float64)
+    if nsamples <= 1:
+        return time
+    offs = _ss_offsets(exptime, nsamples)
+    return (time[:, None] + offs[None, :]).reshape(-1)
+
+
 def _pad_chunk(arrs, N, chunk):
     """Zero-pad each (N, ...) tensor to whole chunks and view it as
     (n_chunks, chunk, ...). Padded draws carry mask = False."""

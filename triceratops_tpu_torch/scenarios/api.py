@@ -1,10 +1,14 @@
-"""Public scenario-evidence API: ``lnZ_TTP``, ``lnZ_TEB`` (also the
-nearby-star NTP / NEB rows), the bound-companion ``lnZ_PTP``, ``lnZ_PEB``,
-``lnZ_STP``, ``lnZ_SEB`` and the TRILEGAL background ``lnZ_DTP``,
-``lnZ_DEB``, ``lnZ_BTP``, ``lnZ_BEB``.
+"""Public scenario-evidence API, the 14 ``lnZ_*`` functions: ``lnZ_TTP``,
+``lnZ_TEB`` (also the nearby-star NTP / NEB rows), the bound-companion
+``lnZ_PTP``, ``lnZ_PEB``, ``lnZ_STP``, ``lnZ_SEB``, the TRILEGAL background
+``lnZ_DTP``, ``lnZ_DEB``, ``lnZ_BTP``, ``lnZ_BEB`` and the nearby-star
+scenarios for hosts of unknown or evolved properties,
+``lnZ_NTP_unknown``, ``lnZ_NEB_unknown``, ``lnZ_NTP_evolved``,
+``lnZ_NEB_evolved`` (which ``calc_probs`` does not call, as in the
+reference).
 
 Counterpart of the same functions in the JAX package's ``scenarios/api.py``
-(reference marginal_likelihoods.py:39-2362): sample on the device, score the
+(reference marginal_likelihoods.py:39-3178): sample on the device, score the
 draws with the chunked likelihood core, reduce to lnZ and the top-100
 best fits. Results hold device tensors until the caller pulls them.
 
@@ -36,6 +40,8 @@ N_SAMPLES = eng.N_SAMPLES
 __all__ = [
     "lnZ_TTP", "lnZ_TEB", "lnZ_PTP", "lnZ_PEB", "lnZ_STP", "lnZ_SEB",
     "lnZ_DTP", "lnZ_DEB", "lnZ_BTP", "lnZ_BEB",
+    "lnZ_NTP_unknown", "lnZ_NEB_unknown", "lnZ_NTP_evolved",
+    "lnZ_NEB_evolved",
 ]
 
 
@@ -167,6 +173,31 @@ def _prep_background_cached(file_sig, Tmag, Jmag, Hmag, Kmag, mission, filt,
     pack = np.stack([np.asarray(bg[f]).astype(F32)
                      for f in eng.BG_PACK_FIELDS], axis=1)
     return {"pack": torch.as_tensor(pack, device=device)}, n
+
+
+def _prep_lookalikes(trilegal_fname, Tmag, mission, device):
+    return _prep_lookalikes_cached(_file_sig(trilegal_fname), Tmag, mission,
+                                   str(torch.device(device)))
+
+
+@lru_cache(maxsize=16)
+def _prep_lookalikes_cached(file_sig, Tmag, mission, device):
+    """(table, N_pos): the TRILEGAL stars with Tmag - 1 < Tmag_i < Tmag + 1
+    (reference ml.py:2402-2446), packed in ``eng.POP_PACK_FIELDS`` order,
+    or (None, 0) when there are none."""
+    (Tmags, Masses, loggs, Teffs, Zs, _J, _H, _K) = trilegal_results(
+        file_sig[0], Tmag)
+    m = (Tmag - 1 < Tmags) & (Tmags < Tmag + 1)
+    if m.sum() == 0:
+        return None, 0
+    Masses, loggs, Teffs, Zs = Masses[m], loggs[m], Teffs[m], Zs[m]
+    u1s, u2s = lookup_stars(Teffs, loggs, Zs, mission)
+    pop = {"masses": Masses,
+           "radii": np.sqrt(G * Masses * MSUN / 10**loggs) / RSUN,
+           "loggs": loggs, "teffs": Teffs, "u1s": u1s, "u2s": u2s}
+    pack = np.stack([np.asarray(pop[f]).astype(F32)
+                     for f in eng.POP_PACK_FIELDS], axis=1)
+    return {"pack": torch.as_tensor(pack, device=device)}, int(m.sum())
 
 
 def lnZ_TTP(time, flux, sigma, P_orb, M_s, R_s, Teff, Z,
@@ -527,3 +558,159 @@ def lnZ_BEB(time, flux, sigma, P_orb, M_s, R_s, Teff, Tmag, Jmag, Hmag,
                                  d["u2s"], exptime, n_t, nsamples,
                                  backend)
     return _eb_results(d, lnL, lnL_twin, _BG_HOST, R_p=_zeros())
+
+
+# ---------------------------------------------------------------------------
+# Nearby-star scenarios for hosts of unknown or evolved properties
+# ---------------------------------------------------------------------------
+
+# the reference's results for an empty lookalike population; the NTP one
+# has no "b" key, a quirk kept as the JAX package keeps it
+_EMPTY_NTP = {"M_s": 0, "R_s": 0, "u1": 0, "u2": 0, "P_orb": 0, "inc": 0,
+              "R_p": 0, "ecc": 0, "argp": 0, "M_EB": 0, "R_EB": 0,
+              "fluxratio_EB": 0, "fluxratio_comp": 0, "lnZ": -np.inf}
+_EMPTY_NEB = {"M_s": 0, "R_s": 0, "u1": 0, "u2": 0, "P_orb": 0, "inc": 0,
+              "b": 0, "R_p": 0, "ecc": 0, "argp": 0, "M_EB": 0, "R_EB": 0,
+              "fluxratio_EB": 0, "fluxratio_comp": 0, "lnZ": -np.inf}
+
+
+def _evolved_mass(R_s):
+    """The host mass [Msun] that a logg of 3.0 gives at radius R_s."""
+    return (10**3.0) * (R_s * RSUN) ** 2 / G / MSUN
+
+
+def lnZ_NTP_unknown(time, flux, sigma, P_orb, Tmag, trilegal_fname,
+                    N: int = 1000000, parallel: bool = False,
+                    mission: str = "TESS", flatpriors: bool = False,
+                    exptime: float = 0.00139, nsamples: int = 20,
+                    gen: torch.Generator = None,
+                    importance_sampling: bool = True, device="cuda",
+                    backend: str = "auto"):
+    """NTP for a star of unknown properties, its host drawn from the
+    TRILEGAL Tmag +/- 1 lookalikes (reference ml.py:2365-2551). With no
+    lookalike it returns the reference's empty result (lnZ = -inf) and
+    runs nothing on the device."""
+    pop, N_pos = _prep_lookalikes(trilegal_fname, Tmag, mission, device)
+    if N_pos == 0:
+        return dict(_EMPTY_NTP)
+    gen = _generator(gen, device)
+    P_lo, P_hi = _p_bounds(P_orb)
+    t, obs_dev, n_t = _lc(time, flux, device)
+    d = eng.sample_ntp_unknown(gen, P_lo, P_hi, pop, N=N,
+                               flatpriors=flatpriors,
+                               stratified=importance_sampling)
+    lnL = _planet_lnL(d, t, obs_dev, sigma, d["u1s"], d["u2s"], exptime,
+                      n_t, nsamples, backend)
+    lnZ, g = eng.run_finalize(lnL, d["lnprior"] + d["lnw"],
+                              _gd(d, "P", "incs", "b", "rps", "eccs", "argps",
+                                  *_BG_HOST))
+    return _res(lnZ, {"M_s": g["host_mass"], "R_s": g["host_rad"],
+                      "u1": g["u1s"], "u2": g["u2s"], "P_orb": g["P"],
+                      "inc": g["incs"], "b": g["b"], "R_p": g["rps"],
+                      "ecc": g["eccs"], "argp": g["argps"]},
+                M_EB=_zeros(), R_EB=_zeros(), fluxratio_EB=_zeros(),
+                fluxratio_comp=_zeros())
+
+
+def _eb_results_noprior(d, lnL, lnL_twin, host_fields, **const):
+    """Normal and twin best-fit dicts of an EB row without a prior term
+    (NEB_unknown / NEB_evolved) and without fluxratio_comp draws;
+    host_fields as in ``_eb_results``."""
+    gnames = ("P", "incs", "b", "eccs", "argps", "masses", "radii",
+              "fluxratios") + (host_fields or ())
+    out = []
+    for br, lnLb, twin in ((d, lnL, False), (d["twin"], lnL_twin, True)):
+        lnZ, g = eng.run_finalize(lnLb, br["lnw"], _gd(br, *gnames))
+        fields = {"P_orb": 2 * g["P"] if twin else g["P"], "inc": g["incs"],
+                  "b": g["b"], "ecc": g["eccs"], "argp": g["argps"],
+                  "M_EB": g["masses"], "R_EB": g["radii"],
+                  "fluxratio_EB": g["fluxratios"]}
+        if host_fields:
+            for name, key in zip(("M_s", "R_s", "u1", "u2"), host_fields):
+                fields[name] = g[key]
+        out.append(_res(lnZ, fields, **const))
+    return tuple(out)
+
+
+def lnZ_NEB_unknown(time, flux, sigma, P_orb, Tmag, trilegal_fname,
+                    N: int = 1000000, parallel: bool = False,
+                    mission: str = "TESS", flatpriors: bool = False,
+                    exptime: float = 0.00139, nsamples: int = 20,
+                    gen: torch.Generator = None,
+                    importance_sampling: bool = True, device="cuda",
+                    backend: str = "auto"):
+    """NEB and its twin for a star of unknown properties (reference
+    ml.py:2554-2829). Returns (res, res_twin), or the reference's single
+    empty result (lnZ = -inf) when there is no lookalike."""
+    pop, N_pos = _prep_lookalikes(trilegal_fname, Tmag, mission, device)
+    if N_pos == 0:
+        return dict(_EMPTY_NEB)
+    gen = _generator(gen, device)
+    P_lo, P_hi = _p_bounds(P_orb)
+    t, obs_dev, n_t = _lc(time, flux, device)
+    d = eng.sample_neb_unknown(gen, P_lo, P_hi, pop, N=N,
+                               stratified=importance_sampling,
+                               twin_n=_twin_n(N, importance_sampling))
+    lnL, lnL_twin = _eb_lnZ_pair(d, t, obs_dev, F32(sigma), d["u1s"],
+                                 d["u2s"], exptime, n_t, nsamples, backend)
+    return _eb_results_noprior(d, lnL, lnL_twin, _BG_HOST, R_p=_zeros(),
+                               fluxratio_comp=_zeros())
+
+
+def lnZ_NTP_evolved(time, flux, sigma, P_orb, R_s, Teff, Z,
+                    N: int = 1000000, parallel: bool = False,
+                    mission: str = "TESS", flatpriors: bool = False,
+                    exptime: float = 0.00139, nsamples: int = 20,
+                    gen: torch.Generator = None,
+                    importance_sampling: bool = True, device="cuda",
+                    backend: str = "auto"):
+    """NTP for a subgiant: a logg of 3.0 sets the host mass (reference
+    ml.py:2832-2966)."""
+    M_s = _evolved_mass(R_s)
+    gen = _generator(gen, device)
+    P_lo, P_hi = _p_bounds(P_orb)
+    u1, u2 = lookup_target(Z, Teff, 3.0, mission)
+    t, obs_dev, n_t = _lc(time, flux, device)
+    d = eng.sample_planet_target(gen, P_lo, P_hi, F32(M_s), F32(R_s), N=N,
+                                 flatpriors=flatpriors,
+                                 stratified=importance_sampling)
+    u1a, u2a = _u_arrays(u1, u2, N, device)
+    lnL = lnL_planet(t, obs_dev, F32(sigma), d["k"], d["P"], d["a_R"],
+                     d["inc_rad"], d["eccs"], d["w_rad"], u1a, u2a,
+                     torch.ones((N,), device=device), d["mask"],
+                     exptime=exptime, n_t=n_t, ns=nsamples, backend=backend)
+    lnZ, g = eng.run_finalize(lnL, d["lnw"],
+                              _gd(d, "P", "incs", "b", "rps", "eccs", "argps"))
+    return _res(lnZ, {"P_orb": g["P"], "inc": g["incs"], "b": g["b"],
+                      "R_p": g["rps"], "ecc": g["eccs"], "argp": g["argps"]},
+                M_s=_full(M_s), R_s=_full(R_s), u1=_full(u1), u2=_full(u2),
+                M_EB=_zeros(), R_EB=_zeros(), fluxratio_EB=_zeros(),
+                fluxratio_comp=_zeros())
+
+
+def lnZ_NEB_evolved(time, flux, sigma, P_orb, R_s, Teff, Z,
+                    N: int = 1000000, parallel: bool = False,
+                    mission: str = "TESS", flatpriors: bool = False,
+                    exptime: float = 0.00139, nsamples: int = 20,
+                    gen: torch.Generator = None,
+                    importance_sampling: bool = True, device="cuda",
+                    backend: str = "auto"):
+    """NEB and its twin for a subgiant (reference ml.py:2969-3178; the twin
+    quirks are the sampler's). The twin's best fits report R_EB = R_s, as
+    the reference's twin lnL call takes it. Returns (res, res_twin)."""
+    M_s = _evolved_mass(R_s)
+    gen = _generator(gen, device)
+    P_lo, P_hi = _p_bounds(P_orb)
+    u1, u2 = lookup_target(Z, Teff, 3.0, mission)
+    t, obs_dev, n_t = _lc(time, flux, device)
+    d = eng.sample_neb_evolved(gen, P_lo, P_hi, F32(M_s), F32(R_s),
+                               F32(Teff), N=N, stratified=importance_sampling,
+                               twin_n=_twin_n(N, importance_sampling))
+    u1a, u2a = _u_arrays(u1, u2, N, device)
+    lnL, lnL_twin = _eb_lnZ_pair(d, t, obs_dev, F32(sigma), u1a, u2a,
+                                 exptime, n_t, nsamples, backend)
+    res, res_twin = _eb_results_noprior(
+        d, lnL, lnL_twin, None, M_s=_full(M_s), R_s=_full(R_s), u1=_full(u1),
+        u2=_full(u2), R_p=_zeros(), fluxratio_comp=_zeros())
+    res_twin["R_EB"] = np.full(N_SAMPLES, R_s)
+    return res, res_twin

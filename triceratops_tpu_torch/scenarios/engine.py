@@ -1,10 +1,12 @@
 """Scenario Monte-Carlo marginalization engine (device side).
 
 Counterpart of the JAX package's ``scenarios/engine.py`` for the 15
-target-star rows and the nearby-star NTP / NEB / NEBx2P rows: planets
-(TP, PTP, STP, DTP, BTP) and eclipsing binaries with their twin branches
-(EB, PEB, SEB, DEB, BEB and the x2P rows), around the target, a bound
-companion or a TRILEGAL background star. Per scenario: a sampler turns
+target-star rows, the nearby-star NTP / NEB / NEBx2P rows and the four
+dormant nearby-star scenarios of unknown or evolved hosts: planets
+(TP, PTP, STP, DTP, BTP, NTP_unknown) and eclipsing binaries with their
+twin branches (EB, PEB, SEB, DEB, BEB, NEB_unknown, NEB_evolved and the
+x2P rows), around the target, a bound companion, a TRILEGAL background
+star or a TRILEGAL lookalike. Per scenario: a sampler turns
 uniform draws into priors,
 Kepler-III geometry and transit/collision masks (masking, never
 compaction, so shapes stay static); the chunked likelihood core
@@ -163,6 +165,8 @@ def _background_prior(has_cc, N_comp, fluxratios_draw, delta_band_draw,
 # matrix, gathered once per draw batch
 BG_PACK_FIELDS = ("fluxratios", "delta_band", "masses", "radii", "loggs",
                   "teffs", "u1s", "u2s", "fluxratios_cc")
+# field order of the packed Tmag +/- 1 lookalike table
+POP_PACK_FIELDS = ("masses", "radii", "loggs", "teffs", "u1s", "u2s")
 
 
 def _drawn_rows(tab, idxs, fields):
@@ -363,6 +367,41 @@ def sample_background_planet(gen, P_lo, P_hi, M_s, R_s, bg, seps, cons,
     return out
 
 
+def _draw_lookalike(gen, pop, n):
+    """(idxs, rows, pop_ok): n lookalike rows drawn uniformly from
+    [0, N_pos) (the JAX package's randint on ``fold_in(key, 777)``); the
+    host must pass ``_host_is_bg_ok``."""
+    idxs = _randint(gen, n, pop["pack"].shape[0])
+    row = _drawn_rows(pop, idxs, POP_PACK_FIELDS)
+    return idxs, row, _host_is_bg_ok(row)
+
+
+def sample_ntp_unknown(gen, P_lo, P_hi, pop, *, N, flatpriors,
+                       stratified=True):
+    """NTP for a star of unknown properties: the host is drawn from the
+    TRILEGAL Tmag +/- 1 lookalike population, no dilution (reference
+    ml.py:2365-2551)."""
+    u = _uniforms(gen, 5, N)
+    P_lo, P_hi = _scalars(gen.device, P_lo, P_hi)
+    idxs, row, pop_ok = _draw_lookalike(gen, pop, N)
+    host_mass, host_rad = row["masses"], row["radii"]
+    P = _draw_P(u[0], P_lo, P_hi)
+    rps = sample_rp(u[1], host_mass, flatpriors)
+    eccs = sample_ecc(u[3], True, P.mean())
+    argps = sample_w(u[4])
+    a, Ptra, coll, r = _geom_base(P, host_mass, host_rad, rps * REARTH,
+                                  eccs, argps)
+    incs, tra_ok, lnw = _inc_weighted(u[2], Ptra, stratified)
+    b = _impact_param(r, incs, host_rad)
+    inc_rad, w_rad = _kernel_angles(incs, argps)
+    return dict(P=P, rps=rps, incs=incs, eccs=eccs, argps=argps, a=a, b=b,
+                mask=tra_ok & ~coll & pop_ok, lnw=lnw, inc_rad=inc_rad,
+                w_rad=w_rad, k=rps * REARTH / (host_rad * RSUN),
+                a_R=a / (host_rad * RSUN), idxs=idxs, host_mass=host_mass,
+                host_rad=host_rad, u1s=row["u1s"], u2s=row["u2s"],
+                g=torch.ones_like(P), lnprior=torch.zeros_like(P))
+
+
 # ---------------------------------------------------------------------------
 # EB-family samplers and the EBx2P twin machinery
 #
@@ -430,13 +469,17 @@ def _twin_q(u, M_q):
 
 
 def _twin_geom(P, M_tot, R_host_rsun, radii_rsun, eccs, argps_deg, u_inc,
-               coll_R_occ_cm):
+               coll_R_occ_cm, Ptra_R_occ_cm=None):
     """Twin-branch geometry at 2P on a conditioned draw set with the
-    grazing-edge inclination mixture."""
+    grazing-edge inclination mixture. Ptra_R_occ_cm overrides the
+    transit-probability radius (NEB_evolved's 2 R_s, reference
+    ml.py:3052)."""
     a_twin = _semimajor(2.0 * P, M_tot)
     sin_argp = torch.sin(argps_deg * PI / 180.0)
     e_corr = (1.0 + eccs * sin_argp) / (1.0 - eccs**2)
-    Ptra = (radii_rsun * RSUN + R_host_rsun * RSUN) / a_twin * e_corr
+    R_occ = (radii_rsun * RSUN + R_host_rsun * RSUN
+             if Ptra_R_occ_cm is None else Ptra_R_occ_cm)
+    Ptra = R_occ / a_twin * e_corr
     r_twin = a_twin * (1.0 - eccs**2) / (1.0 + eccs * sin_argp)
     coll = coll_R_occ_cm > a_twin * (1.0 - eccs)
     incs, tra_ok, lnw = _inc_twin_mixture(u_inc, Ptra)
@@ -476,8 +519,9 @@ def _twin_alias(d):
              masses=d["masses"], radii=d["radii"],
              fluxratios=d["fluxratios"], a=d["a_twin"], incs=d["incs_twin"],
              b=d["b_twin"], mask=d["mask_twin"], lnw=d["lnw_twin"],
-             inc_rad=d["inc_rad_twin"], w_rad=d["w_rad"], k=d["k"],
-             ksec=d["ksec"], g_pri=d["g_pri"], g_sec=d["g_sec"],
+             inc_rad=d["inc_rad_twin"], w_rad=d["w_rad"],
+             k=d.get("k_twin", d["k"]), ksec=d.get("ksec_twin", d["ksec"]),
+             g_pri=d["g_pri"], g_sec=d["g_sec"],
              a_R=d["a_R_twin"],
              lnprior=d.get("lnprior", torch.zeros_like(d["P"])))
     t.update((n, d[n]) for n in _TWIN_SHARED if n in d)
@@ -863,6 +907,144 @@ def sample_background_eb(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons,
         d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
                                tbt, h_rt, kkt, ksect, g_prit, g_sect, lnqm,
                                extra_ok=pop_okt, lnprior=lnpriort, **textra)
+        return d
+    nb, tb = _eb_branches(P, host_mass + masses, host_rad, radii, eccs,
+                          argps, u[1], 2.0 * host_rad * RSUN, stratified)
+    d = _eb_pack(extra, P, qs, eccs, argps, masses, radii, fluxratios,
+                 nb, tb, host_rad, kk, ksec, g_pri, g_sec, pop_ok)
+    d["twin"] = _twin_alias(d)
+    return d
+
+
+def _neb_evolved_fields(gen, P_lo, P_hi, M_s, R_s, Teff, n, twin):
+    """NEB_evolved field block: q is drawn as for a one-solar-mass primary,
+    the EB's flux ratio against the host."""
+    u = _uniforms(gen, 5, n)
+    if twin:
+        u = _lattice_strat(u, (1, 2, 4, 3), n, gen)
+    one = torch.ones((), dtype=F32, device=gen.device)
+    P = _draw_P(u[0], P_lo, P_hi)
+    if twin:
+        qs, lnqmass = _twin_q(u[2], one)
+    else:
+        qs, lnqmass = sample_q(u[2], one), 0.0
+    eccs = sample_ecc(u[3], False, P.mean())
+    argps = sample_w(u[4])
+    masses = qs * M_s
+    radii, _ = stellar_relations(masses, R_s.expand(n), Teff.expand(n))
+    fluxratios = _fluxratio_vs_target(masses, M_s)
+    F_EB = fluxratios / (1.0 - fluxratios)
+    g_pri, g_sec = eb_dilution(F_EB, torch.zeros_like(F_EB), False)
+    return (u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios,
+            g_pri, g_sec)
+
+
+def sample_neb_evolved(gen, P_lo, P_hi, M_s, R_s, Teff, *, N,
+                       stratified=True, twin_n=0):
+    """NEB for a subgiant (logg = 3.0 sets M_s on the host; reference
+    ml.py:2969-3178). The twin branch keeps two quirks: its transit
+    probability and collision radius are 2 R_s (not radii + R_s,
+    ml.py:3052), and its lnL takes R_EB = R_s, so k = ksec = 1 before the
+    0.999 adjustment (ml.py:3100)."""
+    P_lo, P_hi, M_s, R_s, Teff = _scalars(gen.device, P_lo, P_hi, M_s, R_s,
+                                          Teff)
+    (u, P, qs, _, eccs, argps, masses, radii, fluxratios,
+     g_pri, g_sec) = _neb_evolved_fields(gen, P_lo, P_hi, M_s, R_s, Teff, N,
+                                         twin=False)
+    kk, ksec = eb_radius_ratios(radii, R_s)
+    R_occ2 = 2.0 * R_s * RSUN
+    if stratified and twin_n:
+        nb = _eb_normal_branch(P, M_s + masses, R_s, radii, eccs, argps,
+                               u[1], stratified)
+        d = _eb_pack_normal({}, P, qs, eccs, argps, masses, radii,
+                            fluxratios, nb, R_s, kk, ksec, g_pri, g_sec)
+        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt,
+         g_prit, g_sect) = _neb_evolved_fields(gen, P_lo, P_hi, M_s, R_s,
+                                               Teff, twin_n, twin=True)
+        tbt = _twin_geom(Pt, M_s + massest, R_s, radiit, eccst, argpst,
+                         ut[1], R_occ2, Ptra_R_occ_cm=R_occ2)
+        k_t, ksec_t = eb_radius_ratios(R_s.expand(twin_n), R_s)
+        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
+                               tbt, R_s, k_t, ksec_t, g_prit, g_sect, lnqm)
+        return d
+    nb = _eb_normal_branch(P, M_s + masses, R_s, radii, eccs, argps, u[1],
+                           stratified)
+    # the legacy shared-draw twin branch with the 2 R_s quirks
+    a_twin = _semimajor(2.0 * P, M_s + masses)
+    sin_argp = torch.sin(argps * PI / 180.0)
+    e_corr = (1.0 + eccs * sin_argp) / (1.0 - eccs**2)
+    r_twin = a_twin * (1.0 - eccs**2) / (1.0 + eccs * sin_argp)
+    incs_t, tra_ok_t, lnw_t = _inc_weighted(u[1], R_occ2 / a_twin * e_corr,
+                                            stratified)
+    tb = dict(a=a_twin, incs=incs_t, b=_impact_param(r_twin, incs_t, R_s),
+              geo_ok=tra_ok_t & ~(R_occ2 > a_twin * (1.0 - eccs)),
+              lnw=lnw_t)
+    d = _eb_pack({}, P, qs, eccs, argps, masses, radii, fluxratios, nb, tb,
+                 R_s, kk, ksec, g_pri, g_sec)
+    d["k_twin"], d["ksec_twin"] = eb_radius_ratios(R_s.expand(N), R_s)
+    d["twin"] = _twin_alias(d)
+    return d
+
+
+def _neb_unknown_fields(gen, P_lo, P_hi, pop, n, twin):
+    """NEB_unknown field block, with its own lookalike-row draws: q is
+    drawn as for a one-solar-mass primary and the EB's flux ratio is taken
+    against the drawn host in the TESS band, whatever the mission
+    (reference ml.py:2672-2676)."""
+    u = _uniforms(gen, 5, n)
+    if twin:
+        u = _lattice_strat(u, (1, 2, 4, 3), n, gen)
+    idxs, row, pop_ok = _draw_lookalike(gen, pop, n)
+    host_mass, host_rad = row["masses"], row["radii"]
+    one = torch.ones((), dtype=F32, device=gen.device)
+    P = _draw_P(u[0], P_lo, P_hi)
+    if twin:
+        qs, lnqmass = _twin_q(u[2], one)
+    else:
+        qs, lnqmass = sample_q(u[2], one), 0.0
+    eccs = sample_ecc(u[3], False, P.mean())
+    argps = sample_w(u[4])
+    masses = qs * host_mass
+    radii, _ = stellar_relations(masses, host_rad, row["teffs"])
+    f_eb = flux_relation(masses, "TESS")
+    fluxratios = f_eb / (f_eb + flux_relation(host_mass, "TESS"))
+    kk, ksec = eb_radius_ratios(radii, host_rad)
+    F_EB = fluxratios / (1.0 - fluxratios)
+    g_pri, g_sec = eb_dilution(F_EB, torch.zeros_like(F_EB), False)
+    return (u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios,
+            idxs, host_mass, host_rad, row["u1s"], row["u2s"], pop_ok, kk,
+            ksec, g_pri, g_sec)
+
+
+def sample_neb_unknown(gen, P_lo, P_hi, pop, *, N, stratified=True,
+                       twin_n=0):
+    """NEB for a star of unknown properties, its host drawn from the
+    lookalike population (reference ml.py:2554-2829). The twin draw set
+    has its own lookalike rows and limb darkening."""
+    P_lo, P_hi = _scalars(gen.device, P_lo, P_hi)
+    (u, P, qs, _, eccs, argps, masses, radii, fluxratios, idxs,
+     host_mass, host_rad, u1s, u2s, pop_ok, kk, ksec,
+     g_pri, g_sec) = _neb_unknown_fields(gen, P_lo, P_hi, pop, N,
+                                         twin=False)
+    extra = dict(idxs=idxs, host_mass=host_mass, host_rad=host_rad,
+                 u1s=u1s, u2s=u2s, g=torch.ones_like(P),
+                 lnprior=torch.zeros_like(P))
+    if stratified and twin_n:
+        nb = _eb_normal_branch(P, host_mass + masses, host_rad, radii, eccs,
+                               argps, u[1], stratified)
+        d = _eb_pack_normal(extra, P, qs, eccs, argps, masses, radii,
+                            fluxratios, nb, host_rad, kk, ksec, g_pri,
+                            g_sec, pop_ok)
+        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt, idxst,
+         h_mt, h_rt, u1st, u2st, pop_okt, kkt, ksect,
+         g_prit, g_sect) = _neb_unknown_fields(gen, P_lo, P_hi, pop, twin_n,
+                                               twin=True)
+        tbt = _twin_geom(Pt, h_mt + massest, h_rt, radiit, eccst, argpst,
+                         ut[1], 2.0 * h_rt * RSUN)
+        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
+                               tbt, h_rt, kkt, ksect, g_prit, g_sect, lnqm,
+                               extra_ok=pop_okt, idxs=idxst, host_mass=h_mt,
+                               host_rad=h_rt, u1s=u1st, u2s=u2st)
         return d
     nb, tb = _eb_branches(P, host_mass + masses, host_rad, radii, eccs,
                           argps, u[1], 2.0 * host_rad * RSUN, stratified)
