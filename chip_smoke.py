@@ -33,7 +33,17 @@ Drives the port's main path once at full size and checks it:
      launches, FPP the mean of the runs;
   9. runs likelihoods.simulate_TP_transit_p and lnL_EB_p over 1e5
      parameter rows on the card (float64) against the same call on the
-     CPU for the first 256 rows.
+     CPU for the first 256 rows;
+ 10. runs the multi-target batch path (parallel/sharding.batch_fpp_full)
+     on 8 targets at N = 1e6: phase 4's target with its two nearby stars
+     and seven one-star targets on curves synthesized from seeded (Rp, P)
+     rows, 1.5-6 Re and 1-10 d (tools/catalog_replay._synth_lc): (i) in
+     this process alone, cold and warm, checking the rows, that only the
+     v2 orbit kernel launched and exactly once per computed row, and
+     per-row lnZ against the same 8 targets through calc_probs by
+     test_sharding.py's statistical rule; (ii) on a one-rank NCCL grid, identical to (i);
+     (iii) on two gloo ranks sharing the card as a 1 x 2 draws grid, by
+     the statistical rule against (i).
 
 Prints a JSON line with the four kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
@@ -46,10 +56,12 @@ kernel counts, the top device ops) before the JSON lines.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from datetime import timedelta
 
 import numpy as np
 
@@ -85,6 +97,17 @@ R_EVOLVED = 2.0
 N_LIKELIHOOD_ROWS = 100_000
 N_LIKELIHOOD_CHECK = 256
 COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3")
+# phase 10: targets in the batch, the seed of their (Rp, P) rows and the
+# ranges they are drawn from [Re], [d]. At sigma = 4e-4 a planet of ~10 Re
+# or more makes the companion and background rows needles whose lnZ
+# scatters between seeds by more than the statistical rule's gate even at
+# 1e6 draws (STP by ~2 nats at 11.5 Re on an H100); up to 6 Re it holds
+N_BATCH = 8
+BATCH_SEED = 10
+BATCH_RP = (1.5, 6.0)
+BATCH_P = (1.0, 10.0)
+# phase 10: the longest a grid's collective or its spawned ranks may take
+GRID_TIMEOUT_S = 300
 
 
 class SmokeFailure(Exception):
@@ -526,7 +549,7 @@ def phase_slice(torch, chi2_core, tr, workdir):
     return dict(chi2_supersampled=main_counts["launches"],
                 chi2_supersampled_v3=v3_counts["launches_v3"],
                 chi2_from_orbit=main_counts["launches_orbit"],
-                chi2_from_orbit_v3=v3_counts["launches_orbit_v3"]), run, t
+                chi2_from_orbit_v3=v3_counts["launches_orbit_v3"]), run, t, med
 
 
 def _lnz_rows(res):
@@ -716,6 +739,191 @@ def phase_likelihoods(torch):
     return out
 
 
+def _stat_rule(a, b, names):
+    """test_sharding.py's per-row rule between two independent runs: within
+    1.2 nats (2 for twins, 3 for SEBx2P), or more than 5 nats below the
+    winner in both (needle order statistics whose probability weight is
+    below e^-5), or -inf in both. Returns the rows that break it, each
+    with both values, and the largest |a - b| over the rows the gate
+    binds (within 5 nats of a winner)."""
+    names = np.asarray(names)
+    twin = np.char.endswith(names, "x2P")
+    gate = np.where(names == "SEBx2P", 3.0, np.where(twin, 2.0, 1.2))
+    both_inf = np.isneginf(a) & np.isneginf(b)
+    with np.errstate(invalid="ignore"):
+        d = np.where(both_inf, 0.0, np.abs(a - b))
+    deep = (a < np.max(a) - 5.0) & (b < np.max(b) - 5.0)
+    bad = ~((d < gate) | deep | both_inf)
+    live = ~deep & ~both_inf
+    return ([f"{n}: {x:.3f} vs {y:.3f}" for n, x, y in
+             zip(names[bad], a[bad], b[bad])],
+            float(np.max(d[live], initial=0.0)))
+
+
+def _row_names(n_rows):
+    from triceratops_tpu_torch.parallel.sharding import FULL_SCENARIOS
+
+    return list(FULL_SCENARIOS) + ["NTP", "NEB", "NEBx2P"] * (
+        (n_rows - 15) // 3)
+
+
+def _batch_rank(rank, store, entries, out_dir):
+    """One of the two gloo ranks of phase 10 (iii), on cuda:0: the batch
+    over a 1 x 2 draws grid; rank r writes its results, wall and kernel
+    launches to out_dir."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    from triceratops_tpu_torch.ops import chi2_core
+    from triceratops_tpu_torch.parallel import sharding
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=rank,
+                            timeout=timedelta(seconds=GRID_TIMEOUT_S))
+    try:
+        mesh = sharding.make_mesh(2, n_target_shards=1)
+        batch, n_t, has_cc = sharding.prepare_target_batch(entries,
+                                                           device="cuda:0")
+        _reset(chi2_core)
+        t0 = time.perf_counter()
+        fpp, nfpp, lnZ = sharding.batch_fpp_full(
+            mesh, batch, N=N_DRAWS, n_t=n_t, ns=NSAMPLES, has_cc=has_cc,
+            device="cuda:0")
+        wall = time.perf_counter() - t0
+        np.savez(os.path.join(out_dir, f"gloo_rank{rank}.npz"), fpp=fpp,
+                 nfpp=nfpp, lnZ=lnZ, wall=wall,
+                 launches=json.dumps(_counts(chi2_core)))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_batch(torch, chi2_core, t465, workdir, warm_median):
+    """Phase 10: batch_fpp_full over 8 targets at N = 1e6 (ns = 20, n_t =
+    100, sigma = 4e-4, the 3000-star field): phase 4's target with its two
+    nearby stars, and seven one-star targets from seeded (Rp, P) rows
+    (BATCH_RP, BATCH_P) through tools/catalog_replay.build_target. Each
+    run must launch the v2 orbit kernel exactly once per computed row (15
+    per target plus 3 per nearby star) and nothing else. Returns the warm
+    run's launches."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from triceratops_tpu_torch.parallel import sharding
+    from triceratops_tpu_torch.tools import catalog_replay
+
+    _, time_, flux, sigma, P = toi465_field()
+    cases = [(t465, time_, flux, sigma, P)]
+    rng = np.random.default_rng(BATCH_SEED)
+    for i in range(1, N_BATCH):
+        row = {"TOI": 9000.01 + i, "TICID": 900000 + i,
+               "Rp": rng.uniform(*BATCH_RP), "Porb": rng.uniform(*BATCH_P)}
+        cases.append(catalog_replay.build_target(
+            row, f"{workdir}/trilegal.csv", device="cuda"))
+    entries = [sharding.target_entry(*c, key=100 + i)
+               for i, c in enumerate(cases)]
+    batch, n_t, has_cc = sharding.prepare_target_batch(entries, device="cuda")
+    expected = sum(15 + 3 * len(e["nearby"]) for e in entries)
+    kw = dict(N=N_DRAWS, n_t=n_t, ns=NSAMPLES, has_cc=has_cc, device="cuda")
+
+    def timed(mesh):
+        _reset(chi2_core)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sharding.batch_fpp_full(mesh, batch, **kw)
+        return out, time.perf_counter() - t0, _counts(chi2_core)
+
+    def launches_ok(c, what):
+        check(_only(c, "launches_orbit") and c["launches_orbit"] == expected,
+              f"{what}: expected {expected} v2 orbit launches only, got {c}")
+
+    cold, wall_cold, c_cold = timed(None)
+    warm, wall_warm, c_warm = timed(None)
+    launches_ok(c_cold, "phase 10 (i) cold")
+    launches_ok(c_warm, "phase 10 (i) warm")
+    fpp, nfpp, lnZ = warm
+    names = _row_names(lnZ.shape[1])
+    valid = np.zeros(lnZ.shape, bool)
+    for i, e in enumerate(entries):
+        valid[i, :15 + 3 * len(e["nearby"])] = True
+    check(np.isfinite(lnZ[valid]).all(), f"non-finite batch lnZ {lnZ}")
+    check(np.isneginf(lnZ[~valid]).all(), "a padding nearby slot is finite")
+    check(np.all((fpp >= 0) & (fpp <= 1) & (nfpp >= 0) & (nfpp <= 1)),
+          f"FPP {fpp}, NFPP {nfpp}")
+    rerun = float(np.max(np.abs(cold[2][valid] - lnZ[valid])))
+    print(f"phase 10 (i): batch_fpp_full, {N_BATCH} targets x N={N_DRAWS}, "
+          f"mesh=None: cold {wall_cold:.4f} s, warm {wall_warm:.4f} s = "
+          f"{wall_warm / N_BATCH:.4f} s/target (phase 6 warm median "
+          f"{warm_median:.4f} s per 21-row call); {c_warm['launches_orbit']} "
+          f"orbit launches per call (expected {expected}); cold vs warm "
+          f"max |d lnZ| {rerun:.3g}")
+    print("phase 10 (i): FPP " + ", ".join(f"{v:.4g}" for v in fpp)
+          + "; NFPP " + ", ".join(f"{v:.4g}" for v in nfpp))
+
+    walls, worst = [], 0.0
+    for i, (t, tm, fl, sg, Pp) in enumerate(cases):
+        t0 = time.perf_counter()
+        t.calc_probs(tm, fl, sg, P_orb=Pp, N=N_DRAWS, nsamples=NSAMPLES,
+                     verbose=0, key=200 + i, device="cuda")
+        walls.append(time.perf_counter() - t0)
+        n = len(t.lnZ)
+        bad, d = _stat_rule(lnZ[i, :n], t.lnZ, names[:n])
+        check(not bad, f"phase 10 (i) target {i}, batch vs calc_probs: "
+              f"{bad}")
+        worst = max(worst, d)
+    print(f"phase 10 (i): the same targets through calc_probs "
+          f"{sum(walls):.4f} s = {sum(walls) / N_BATCH:.4f} s/target (warm); "
+          f"per-row lnZ within the statistical rule, largest |d| within 5 "
+          f"nats of the winner {worst:.3g}")
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=GRID_TIMEOUT_S))
+    try:
+        mesh = sharding.make_mesh()
+        nccl, wall_nccl, c_nccl = timed(mesh)
+    finally:
+        dist.destroy_process_group()
+    launches_ok(c_nccl, "phase 10 (ii)")
+    same = all(np.array_equal(a, b) for a, b in zip(nccl, warm))
+    print(f"phase 10 (ii): one-rank NCCL grid {dict(mesh.shape)}: "
+          f"{wall_nccl:.4f} s; identical to (i): {same}")
+    check(same, "the one-rank NCCL grid differs from mesh=None")
+
+    t0 = time.perf_counter()
+    ranks = mp.spawn(_batch_rank, args=(f"{workdir}/gloo", entries, workdir),
+                     nprocs=2, join=False)
+    while not ranks.join(timeout=5):
+        if time.perf_counter() - t0 > GRID_TIMEOUT_S:
+            for p in ranks.processes:
+                p.kill()
+            raise SmokeFailure(f"the gloo ranks did not finish in "
+                               f"{GRID_TIMEOUT_S} s")
+    wall_spawn = time.perf_counter() - t0
+    ranks = [np.load(os.path.join(workdir, f"gloo_rank{r}.npz"))
+             for r in range(2)]
+    for r in ranks:
+        launches_ok(json.loads(str(r["launches"])), "phase 10 (iii) rank")
+    check(all(np.array_equal(ranks[0][k], ranks[1][k])
+              for k in ("fpp", "nfpp", "lnZ")),
+          "the two gloo ranks returned different batches")
+    lnZ2 = ranks[0]["lnZ"]
+    worst = 0.0
+    for i in range(N_BATCH):
+        bad, d = _stat_rule(lnZ2[i], lnZ[i], names)
+        check(not bad, f"phase 10 (iii) target {i}, 1 x 2 grid vs (i): "
+              f"{bad}")
+        worst = max(worst, d)
+    print(f"phase 10 (iii): two gloo ranks on cuda:0, draws grid 1 x 2 "
+          f"(N_local = {N_DRAWS // 2}): batch call {float(ranks[0]['wall']):.4f}"
+          f" / {float(ranks[1]['wall']):.4f} s (first call in each rank), "
+          f"{wall_spawn:.1f} s with process start; per rank "
+          f"{expected} orbit launches; per-row lnZ within the statistical "
+          f"rule of (i), largest |d| within 5 nats of the winner "
+          f"{worst:.3g}")
+    return c_warm["launches_orbit"]
+
+
 def phase_profile(torch, run, backends=("auto", "torch")):
     """One warm call per path under torch.profiler (CPU + CUDA), beside an
     unprofiled warm call of the same path: the kernel launches of the
@@ -808,10 +1016,13 @@ def main():
         build_s = phase_build(chi2_core)
         timing = phase_kernel(torch, chi2_core)
         with tempfile.TemporaryDirectory() as workdir:
-            launches, run, t = phase_slice(torch, chi2_core, tr, workdir)
+            launches, run, t, med = phase_slice(torch, chi2_core, tr,
+                                                workdir)
             phase_dormant(torch, chi2_core, workdir)
             phase_ensemble(chi2_core, t)
             phase_likelihoods(torch)
+            launches["chi2_from_orbit"] = phase_batch(torch, chi2_core, t,
+                                                      workdir, med)
             if "--profile" in sys.argv[1:]:
                 phase_profile(torch, run)
     except SmokeFailure as e:
@@ -820,7 +1031,8 @@ def main():
     # each kernel at the main path's shape (n_t = 100, GL-4): the plane
     # kernels at their old 16384-draw chunk, the orbit kernels at
     # orbit_chunk(1e6); no single PyTorch call computes this function, so
-    # no library time
+    # no library time. Launches: orbit v2 in phase 10's warm batch call,
+    # orbit v3 in phase v3's call, the plane kernels on neither path
     src = "triceratops_tpu_torch/csrc/chi2_supersampled.cu"
     kernels = []
     for name, replaces in (

@@ -123,9 +123,9 @@ def test_shared_index_draws(shared_uniforms):
 
 def test_import_without_jax():
     """The port imports torch, numpy, scipy and pandas only (and matplotlib
-    for its plots): importing it, the likelihoods, the catalogs and the
-    plotting module with jax made unimportable succeeds and pulls in no
-    triceratops_tpu module."""
+    for its plots): importing it, the likelihoods, the catalogs, the
+    plotting module, the batch path and the catalog replay with jax made
+    unimportable succeeds and pulls in no triceratops_tpu module."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -134,6 +134,8 @@ def test_import_without_jax():
         "import triceratops_tpu_torch.likelihoods\n"
         "import triceratops_tpu_torch.populations.catalogs\n"
         "import triceratops_tpu_torch.frontend.plotting\n"
+        "import triceratops_tpu_torch.parallel.sharding\n"
+        "import triceratops_tpu_torch.tools.catalog_replay\n"
         "bad = [m for m in sys.modules if m == 'triceratops_tpu' or "
         "m.startswith('triceratops_tpu.')]\n"
         "assert not bad, bad\n"
