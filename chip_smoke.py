@@ -5,7 +5,12 @@ Drives the port's main path once at full size and checks it:
   1. requires CUDA and prints the card's name and power limit;
   2. builds the chi^2 kernels (v2 and v3 schedules, each over z^2 planes
      and over the orbit; one source) from csrc/ with nvcc and prints the
-     build time;
+     build time; then, with torch.set_float32_matmul_precision("high"),
+     computes the tabulated deficit coefficients of 1e5 seeded draws
+     across all eight k-segments on the card and holds them to the CPU
+     path within 3e-6 (the coefficient products run in IEEE float32
+     whatever the caller's setting), checks the setting came back, and
+     that with the guard lifted the same call misses 3e-6;
   3. compares each of the four kernels with its plain torch version on the
      card at the main path's shape (n_t = 100, GL-4), at long-curve shapes
      (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times them
@@ -19,7 +24,10 @@ Drives the port's main path once at full size and checks it:
      3000-star synthetic TRILEGAL field) plus two nearby stars: all 21
      rows, v2 schedule; checks the result and that only the v2 orbit
      kernel launched;
-  5. reruns the same seed on the plain torch path and compares per-row lnZ;
+  5. reruns the same seed on the plain torch path and compares per-row
+     lnZ; then reruns it on the kernel path under TF32
+     (set_float32_matmul_precision("high")): per-row lnZ within 1e-2 of 4,
+     and prints the same run's distance with the products' guard lifted;
   v3. reruns the same seed under the v3 schedule: only the v3 orbit kernel
      launched, per-row lnZ as in 4; then one warm v3 call;
   6. times three warm calc_probs calls with different seeds (v2);
@@ -43,7 +51,13 @@ Drives the port's main path once at full size and checks it:
      per-row lnZ against the same 8 targets through calc_probs by
      test_sharding.py's statistical rule; (ii) on a one-rank NCCL grid, identical to (i);
      (iii) on two gloo ranks sharing the card as a 1 x 2 draws grid, by
-     the statistical rule against (i).
+     the statistical rule against (i);
+ 11. holds the port's FPP, NFPP and per-row lnZ statistics over K = 16
+     seeds at N = 1e6 to the JAX package's K-key record
+     (parity/jax_ref.json, parity_ref.py) on its two fixtures, phase 4's
+     21-row target and an 11.5 Re planet, by parity_port.py's gates;
+     F1's TP and DTP rows against the JAX package's 100-key row record
+     (parity/jax_rows.json).
 
 Prints a JSON line with the four kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
@@ -100,14 +114,29 @@ COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3")
 # phase 10: targets in the batch, the seed of their (Rp, P) rows and the
 # ranges they are drawn from [Re], [d]. At sigma = 4e-4 a planet of ~10 Re
 # or more makes the companion and background rows needles whose lnZ
-# scatters between seeds by more than the statistical rule's gate even at
-# 1e6 draws (STP by ~2 nats at 11.5 Re on an H100); up to 6 Re it holds
+# scatters between seeds by more than the statistical rule's gate at 1e6
+# draws, in both packages: at 11.5 Re (parity_ref.py's F2) STP has an s.d.
+# of 2.54 nats over 20 keys of the JAX package on the CPU and 1.97 over 20
+# seeds of the port on an H100 (parity/); up to 6 Re the rule holds
 N_BATCH = 8
 BATCH_SEED = 10
 BATCH_RP = (1.5, 6.0)
 BATCH_P = (1.0, 10.0)
 # phase 10: the longest a grid's collective or its spawned ranks may take
 GRID_TIMEOUT_S = 300
+# phase 2: draws of the coefficient check under TF32, their seed, and the
+# tolerance of the tabulated coefficients (tests/test_fastcore.py)
+N_TF32_DRAWS = 100_000
+TF32_SEED = 7
+TAB_TOL = 3e-6
+# phase 11: seeds per fixture against the JAX package's 20-key record
+# (100 keys for F1's TP and DTP rows, parity/jax_rows.json). Against 20
+# reference runs the s.d.-ratio gate rejects one estimator's samples with
+# probability ~0.04-0.06 per row at 8 seeds and ~0.006-0.015 at 16
+# (resamples of the 100 JAX keys, parity_port.py --rows), so over the
+# seven gated rows a run of 8 seeds fails by chance about one time in
+# four; the first 8 seeds fail it on F1's PTP row (PERF.md, Findings)
+K_PARITY = 16
 
 
 class SmokeFailure(Exception):
@@ -143,6 +172,56 @@ def phase_build(chi2_core):
           f"chi2_supersampled_v3, chi2_from_orbit, chi2_from_orbit_v3) in "
           f"{dt:.2f} s")
     return dt
+
+
+def phase_tf32_coeffs(torch):
+    """Phase 2: cheb_deficit_coeffs_tab under TF32 on the card against the
+    CPU path on 1e5 seeded (k, u1, u2) draws, k uniform within each of
+    the table's eight k-segments: every output within TAB_TOL, and the
+    caller's precision setting back after the call. As a control, the
+    same call with the products' guard lifted must exceed TAB_TOL, so the
+    check is known to see TF32."""
+    import contextlib
+
+    from triceratops_tpu_torch.ops import fastcore
+
+    rng = np.random.default_rng(TF32_SEED)
+    br = fastcore._TAB_BREAKS
+    k = np.concatenate([rng.uniform(br[g], br[g + 1], N_TF32_DRAWS // 8)
+                        for g in range(8)])
+    u1 = rng.uniform(0.0, 0.8, k.size)
+    u2 = np.minimum(rng.uniform(0.0, 0.4, k.size), 1.0 - u1)
+    cpu = [torch.as_tensor(a, dtype=torch.float32) for a in (k, u1, u2)]
+    want = fastcore.cheb_deficit_coeffs_tab(*cpu)
+
+    def err(guard=None):
+        saved = fastcore.full_precision_matmul
+        if guard is not None:
+            fastcore.full_precision_matmul = guard
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            got = fastcore.cheb_deficit_coeffs_tab(*(a.cuda() for a in cpu))
+            torch.cuda.synchronize()
+            kept = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision(prev)
+            fastcore.full_precision_matmul = saved
+        return max(float((g.cpu() - w).abs().max())
+                   for g, w in zip(got, want)), kept
+
+    e, kept = err()
+    e_unguarded, _ = err(contextlib.nullcontext)
+    print(f"phase 2: tab coefficients of {k.size} draws on the card under "
+          f"TF32 (set_float32_matmul_precision('high')) vs the CPU: max "
+          f"|d| {e:.3g} (gate {TAB_TOL}); setting after the call {kept!r}; "
+          f"with the products' guard lifted {e_unguarded:.3g}")
+    check(e < TAB_TOL, f"tab coefficients under TF32 differ by {e}")
+    check(kept == "high", f"the caller's precision came back as {kept!r}")
+    check(e_unguarded > TAB_TOL,
+          f"with the guard lifted the coefficients differ by only "
+          f"{e_unguarded}: TF32 did not engage, so the check saw nothing")
+    return e
 
 
 def _draws(torch, C, n_t, ns, window, seed):
@@ -487,7 +566,9 @@ def phase_slice(torch, chi2_core, tr, workdir):
     """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
     stars. Returns each kernel's launches in its path's run (v2 or v3),
     run and the target."""
-    from triceratops_tpu_torch.ops import lightcurve
+    import contextlib
+
+    from triceratops_tpu_torch.ops import fastcore, lightcurve
 
     t, run = make_run(tr, workdir)
     _reset(chi2_core)
@@ -520,6 +601,32 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{wall_plain:.3f} s; per-row |lnZ kernel - lnZ plain| max "
           f"{dz.max():.3g}")
     check(dz.max() < 1e-2, f"kernel and plain lnZ differ: {dz}")
+
+    def run_tf32(guard=None):
+        """run(1) under TF32, with the products' guard replaced by
+        ``guard`` when given; per-row |lnZ - phase 4's|."""
+        saved = (fastcore.full_precision_matmul,
+                 lightcurve.full_precision_matmul)
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        if guard is not None:
+            fastcore.full_precision_matmul = guard
+            lightcurve.full_precision_matmul = guard
+        try:
+            wall = run(1)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+            (fastcore.full_precision_matmul,
+             lightcurve.full_precision_matmul) = saved
+        return wall, np.abs(t.lnZ - lnZ)
+
+    wall_tf32, dz_tf32 = run_tf32()
+    _, dz_lifted = run_tf32(contextlib.nullcontext)
+    print(f"phase 5: same seed on the kernel path under TF32 "
+          f"{wall_tf32:.3f} s; per-row |lnZ TF32 - lnZ| max "
+          f"{dz_tf32.max():.3g}; with the products' guard lifted (not "
+          f"gated) {dz_lifted.max():.3g}")
+    check(dz_tf32.max() < 1e-2, f"lnZ under TF32 differs: {dz_tf32}")
 
     lightcurve.CHI2_SCHEDULE = "3"
     try:
@@ -924,6 +1031,36 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     return c_warm["launches_orbit"]
 
 
+def phase_parity():
+    """Phase 11: parity_port.check over K_PARITY seeds per fixture against
+    the JAX package's committed record, no plain-rejection runs; fails on
+    any gate. Returns its wall (s, host clock)."""
+    import parity_port
+
+    t0 = time.perf_counter()
+    summary, ok = parity_port.check(K=K_PARITY, K_plain=0, verbose=False)
+    wall = time.perf_counter() - t0
+    for line in summary["table"].splitlines():
+        print(f"phase 11: {line}")
+    fails = [f"{name}: {f}" for name, r in summary["gates"].items()
+             for f in r["failures"]]
+    for name, r in summary["gates"].items():
+        floors = [k for k in ("FPP", "NFPP") if r[k]["floor"]]
+        if floors:
+            print(f"phase 11: {name}: {', '.join(floors)} below 1e-2 on "
+                  f"both sides: limit floored at 1e-3")
+    longer = [f"{name} {r['row']} ({r['K_ref']} keys)"
+              for name, g in summary["gates"].items() for r in g["rows"]
+              if r["K_ref"] != g["K_ref"]]
+    print(f"phase 11: K = {K_PARITY} port seeds per fixture vs the JAX "
+          f"record's K = {summary['gates']['F1']['K_ref']}"
+          f"{' (' + ', '.join(longer) + ')' if longer else ''} (jax "
+          f"{summary['ref_jax_version']}, {summary['ref_cpu']}): "
+          f"{wall:.1f} s; {'all gates pass' if ok else fails}")
+    check(ok, f"phase 11 parity gates: {fails}")
+    return wall
+
+
 def phase_profile(torch, run, backends=("auto", "torch")):
     """One warm call per path under torch.profiler (CPU + CUDA), beside an
     unprofiled warm call of the same path: the kernel launches of the
@@ -1014,6 +1151,7 @@ def main():
     try:
         phase_device(torch)
         build_s = phase_build(chi2_core)
+        phase_tf32_coeffs(torch)
         timing = phase_kernel(torch, chi2_core)
         with tempfile.TemporaryDirectory() as workdir:
             launches, run, t, med = phase_slice(torch, chi2_core, tr,
@@ -1023,6 +1161,7 @@ def main():
             phase_likelihoods(torch)
             launches["chi2_from_orbit"] = phase_batch(torch, chi2_core, t,
                                                       workdir, med)
+            phase_parity()
             if "--profile" in sys.argv[1:]:
                 phase_profile(torch, run)
     except SmokeFailure as e:

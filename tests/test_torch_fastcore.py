@@ -5,7 +5,9 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from triceratops_tpu.ops import fastcore as jfc
 from triceratops_tpu_torch.ops import fastcore as tfc
@@ -105,3 +107,97 @@ class TestExposureModel:
         # the reference's own f32 gate on in-transit z (test_kepler.py
         # TestF32NearTransitPrecision); both f32 paths measure ~1.5e-5
         assert err.max() < 1e-4, err.max()
+
+
+def _backend_precisions():
+    return (torch.backends.cuda.matmul.fp32_precision,
+            torch.backends.mkldnn.matmul.fp32_precision)
+
+
+class _ProductSpy(TorchFunctionMode):
+    """Records the per-backend fp32 matmul precision in force at every
+    matmul / einsum the block calls; raises at the first one when
+    ``fail``."""
+
+    def __init__(self, fail=False):
+        super().__init__()
+        self.seen, self.fail = [], fail
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if "matmul" in name or "einsum" in name:
+            self.seen.append((name, _backend_precisions()))
+            if self.fail:
+                raise RuntimeError("spy")
+        return func(*args, **(kwargs or {}))
+
+
+class TestFullPrecisionProducts:
+    """The coefficient products run in IEEE float32 whatever the caller's
+    torch matmul precision (the JAX package pins its tab product to
+    Precision.HIGHEST), and the caller's setting comes back."""
+
+    @pytest.mark.parametrize("fn", ["cheb_deficit_coeffs_tab",
+                                    "cheb_deficit_coeffs"])
+    def test_guard_in_force_and_restored(self, fn):
+        k, u1, u2 = (tf(a) for a in _cases(n=64, seed=2))
+        try:
+            torch.set_float32_matmul_precision("high")
+            caller = _backend_precisions()
+            assert caller == ("tf32", "tf32")
+            with _ProductSpy() as spy:
+                getattr(tfc, fn)(k, u1, u2)
+            assert spy.seen, "no product was called"
+            assert all(p == ("ieee", "ieee") for _, p in spy.seen), spy.seen
+            assert _backend_precisions() == caller
+            assert torch.get_float32_matmul_precision() == "high"
+            with pytest.raises(RuntimeError, match="spy"):
+                with _ProductSpy(fail=True):
+                    getattr(tfc, fn)(k, u1, u2)
+            assert _backend_precisions() == caller
+            assert torch.get_float32_matmul_precision() == "high"
+        finally:
+            torch.set_float32_matmul_precision("highest")
+
+    def test_node_mean_under_guard(self):
+        """The plain path's GL node mean (lightcurve._mean_deficit_fast)
+        also runs its einsum under the guard."""
+        from triceratops_tpu_torch.ops import lightcurve as tlc
+
+        rng = np.random.default_rng(4)
+        n = 32
+        args = (tf(np.linspace(-0.1, 0.1, 20)), 0.00139,
+                tf(rng.uniform(0.05, 0.2, n)), tf(np.full(n, 3.0)),
+                tf(np.full(n, 9.6)), tf(np.full(n, 1.55)),
+                tf(np.zeros(n)), tf(np.zeros(n)), tf(np.full(n, 0.4)),
+                tf(np.full(n, 0.2)), 20, 20)
+        try:
+            torch.set_float32_matmul_precision("medium")
+            caller = _backend_precisions()
+            with _ProductSpy() as spy:
+                tlc._mean_deficit_fast(*args)
+            assert any(n == "einsum" for n, _ in spy.seen)
+            assert all(p == ("ieee", "ieee") for _, p in spy.seen), spy.seen
+            assert _backend_precisions() == caller
+        finally:
+            torch.set_float32_matmul_precision("highest")
+
+    @pytest.mark.cuda
+    def test_tab_coeffs_under_tf32_on_card(self):
+        """With TF32 on, the card's tabulated coefficients over 1e5 draws
+        across all eight k-segments stay within 3e-6 of the CPU path's."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card")
+        k, u1, u2 = _cases(n=100_000, seed=11)
+        args = [tf(a) for a in (k, u1, u2)]
+        want = tfc.cheb_deficit_coeffs_tab(*args)
+        try:
+            torch.set_float32_matmul_precision("high")
+            got = tfc.cheb_deficit_coeffs_tab(*(a.cuda() for a in args))
+            torch.cuda.synchronize()
+            assert torch.get_float32_matmul_precision() == "high"
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        err = max(float((g.cpu() - w).abs().max())
+                  for g, w in zip(got, want))
+        assert err < 3e-6, err

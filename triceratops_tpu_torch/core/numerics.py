@@ -8,6 +8,9 @@ Same semantics as the JAX package's ``core/numerics.py`` (reference
   +inf propagates.
 * ``normalize_probabilities(lnZ)``: softmax over finite evidences with
   degenerate-status reporting ('ok' | 'all_neginf' | 'anomaly').
+* ``full_precision_matmul()``: a block in which float32 products run in
+  IEEE float32 whatever the caller's torch settings (the JAX package
+  pins its products with ``precision=HIGHEST``).
 
 The host versions use numpy; ``log_mean_exp_torch`` runs on the device so
 the N-draw weight vector never leaves it.
@@ -16,6 +19,7 @@ the N-draw weight vector never leaves it.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -67,3 +71,23 @@ def log_mean_exp_torch(logw: torch.Tensor, N_total: int) -> torch.Tensor:
     out = m_safe + torch.log(sumexp) - math.log(N_total)
     out = torch.where(any_finite, out, torch.full_like(out, -math.inf))
     return torch.where(any_posinf, torch.full_like(out, math.inf), out)
+
+
+@contextmanager
+def full_precision_matmul():
+    """Run the block's float32 matmuls in IEEE float32: no TF32 on the
+    card, no bf16 or TF32 in oneDNN on the CPU, whatever
+    ``torch.set_float32_matmul_precision`` or ``fp32_precision`` the
+    caller set. The caller's settings come back on exit, exceptions
+    included. Setting each backend's ``fp32_precision`` (torch >= 2.9)
+    and restoring the value read keeps a caller of the legacy API on that
+    API (torch refuses to read a mix of the two)."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [b.fp32_precision for b in backends]
+    try:
+        for b in backends:
+            b.fp32_precision = "ieee"
+        yield
+    finally:
+        for b, v in zip(backends, saved):
+            b.fp32_precision = v

@@ -24,6 +24,7 @@ import os
 import torch
 
 from ..core.kepler import z2_taylor
+from ..core.numerics import full_precision_matmul
 from ..tables import M_CHEB, cheb_k_tables, load_tables
 from .occult import occult_quad_deficit
 
@@ -69,8 +70,10 @@ def cheb_deficit_coeffs(k, u1, u2):
     DB1 = occult_quad_deficit(kcol, zsplit + wB1 * s, u1b, u2b)
     DB2 = occult_quad_deficit(kcol, zmid + wB2 * s, u1b, u2b)
     dct = tabs["dct_T"]
-    return (DA @ dct, DB1 @ dct, DB2 @ dct, zsplit[:, 0], zmid[:, 0],
-            1.0 / wA[:, 0], 1.0 / wB1[:, 0], 1.0 / wB2[:, 0])
+    with full_precision_matmul():
+        cA, cB1, cB2 = DA @ dct, DB1 @ dct, DB2 @ dct
+    return (cA, cB1, cB2, zsplit[:, 0], zmid[:, 0], 1.0 / wA[:, 0],
+            1.0 / wB1[:, 0], 1.0 / wB2[:, 0])
 
 
 def _tab_kappa_onehot(kc):
@@ -100,8 +103,9 @@ def _tab_kappa_onehot(kc):
 def cheb_deficit_coeffs_tab(k, u1, u2):
     """Same output as :func:`cheb_deficit_coeffs`, from the k-tabulated
     basis coefficients: a Chebyshev-in-kappa design row per draw times the
-    (sum_degs, 162) table. The product stays a plain full-precision
-    ``torch.matmul`` (no TF32)."""
+    (sum_degs, 162) table. Both products run in IEEE float32 whatever
+    the caller's matmul precision (``full_precision_matmul``), as the JAX
+    package pins them with ``precision=HIGHEST``."""
     kc = torch.clamp(k, float(_TAB_BREAKS[0]), float(_TAB_BREAKS[-1]))
     kappa, actives = _tab_kappa_onehot(kc)
     T = [torch.ones_like(kappa), kappa]
@@ -111,7 +115,8 @@ def cheb_deficit_coeffs_tab(k, u1, u2):
     T = torch.stack(T, dim=1)                                 # (N, maxdeg)
     Tfull = torch.cat([T[:, : int(_TAB_DEGS[g])] * actives[g][:, None].to(k.dtype)
                        for g in range(8)], dim=1)             # (N, sum_degs)
-    bas = Tfull @ load_tables(k.device, k.dtype)["tab_C"]     # (N, 162)
+    with full_precision_matmul():
+        bas = Tfull @ load_tables(k.device, k.dtype)["tab_C"]  # (N, 162)
     bas = bas.reshape(-1, 3, M_CHEB, 3)
 
     om = 1.0 - u1 / 3.0 - u2 / 6.0
@@ -120,7 +125,8 @@ def cheb_deficit_coeffs_tab(k, u1, u2):
     w = torch.stack([(1.0 - u1 - 2.0 * u2) * scale,
                      (u1 + 2.0 * u2) * scale,
                      u2 * scale], dim=-1)                      # (N, 3)
-    coeffs = torch.einsum("nsmb,nb->nsm", bas, w)
+    with full_precision_matmul():
+        coeffs = torch.einsum("nsmb,nb->nsm", bas, w)
     zsplit, zmid, wA, wB1, wB2 = _segments(k)
     return (coeffs[:, 0], coeffs[:, 1], coeffs[:, 2], zsplit[:, 0],
             zmid[:, 0], 1.0 / wA[:, 0], 1.0 / wB1[:, 0], 1.0 / wB2[:, 0])

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core.kepler import projected_z
+from ..core.numerics import full_precision_matmul
 from . import chi2_core
 from .fastcore import (
     deficit_coeffs, cheb_deficit_eval, exposure_z2_poly, z_supersampled,
@@ -135,8 +136,9 @@ def _mean_deficit_fast(time, exptime, k, P, a_R, inc, e, w, u1, u2,
                            torch.as_tensor(offs, device=time.device))
         D = cheb_deficit_eval(coeffs, z.reshape(z.shape[0], -1))
         D = D.reshape(z.shape) * front[:, None, :]
-        return torch.einsum("cst,s->ct", D,
-                            torch.as_tensor(wgt, device=time.device))
+        with full_precision_matmul():
+            return torch.einsum("cst,s->ct", D,
+                                torch.as_tensor(wgt, device=time.device))
     z, front = projected_z(time[None, :], 0.0, P[:, None], a_R[:, None],
                            inc[:, None], e[:, None], w[:, None])
     D = cheb_deficit_eval(coeffs, z)
