@@ -18,7 +18,11 @@ Drives the port's main path once at full size and checks it:
      the orbit kernels at the main path's chunk (lightcurve.orbit_chunk)
      beside their yardstick, exposure_z2_poly plus the plane kernel on the
      same draws (on the long curves both at the old chunk, where the
-     planes fit);
+     planes fit); then both orbit kernels with a target axis, one launch
+     over 8 targets x 1000192 draws (n_t = 100, GL-4, each target its own
+     curve), against the plain version per target, draw for draw against
+     one launch per target, and timed beside 8x the one-target launch and
+     the summed bound;
   4. runs target.from_stars -> calc_depths -> calc_probs(N = 1e6,
      nsamples = 20) on bench.py's configuration (a TOI-465-like target, a
      3000-star synthetic TRILEGAL field) plus two nearby stars: all 21
@@ -47,9 +51,12 @@ Drives the port's main path once at full size and checks it:
      and seven one-star targets on curves synthesized from seeded (Rp, P)
      rows, 1.5-6 Re and 1-10 d (tools/catalog_replay._synth_lc): (i) in
      this process alone, cold and warm, checking the rows, that only the
-     v2 orbit kernel launched and exactly once per computed row, and
-     per-row lnZ against the same 8 targets through calc_probs by
-     test_sharding.py's statistical rule; (ii) on a one-rank NCCL grid, identical to (i);
+     v2 orbit kernel launched, exactly once per computed row over the
+     batch (21: one program per row over all targets), its peak device
+     memory (at most 20 GiB), per-row lnZ against the same targets run one
+     at a time (B = 1 batches, the same seeds) within 1e-3 nats, and
+     against the same 8 targets through calc_probs by test_sharding.py's
+     statistical rule; (ii) on a one-rank NCCL grid, identical to (i);
      (iii) on two gloo ranks sharing the card as a 1 x 2 draws grid, by
      the statistical rule against (i);
  11. holds the port's FPP, NFPP and per-row lnZ statistics over K = 16
@@ -124,6 +131,12 @@ BATCH_RP = (1.5, 6.0)
 BATCH_P = (1.0, 10.0)
 # phase 10: the longest a grid's collective or its spawned ranks may take
 GRID_TIMEOUT_S = 300
+# phase 10: the most device memory the warm batch call may take, and how
+# far (nats) a row of the batch may sit from its target run alone on the
+# same seeds (the coefficient products' rounding differs with the launch
+# size)
+BATCH_PEAK_GIB = 20.0
+BATCH_VS_ONE_NATS = 1e-3
 # phase 2: draws of the coefficient check under TF32, their seed, and the
 # tolerance of the tabulated coefficients (tests/test_fastcore.py)
 N_TF32_DRAWS = 100_000
@@ -485,6 +498,55 @@ def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
                           yardstick_ms=yard_ms, cmp_ms=cmp_ms, C=C_main,
                           C_cmp=C_cmp)
     return row
+
+
+def phase_kernel_targets(torch, chi2_core, single):
+    """Phase 3, the orbit kernels' target axis: one launch over N_BATCH
+    targets x orbit_chunk(1e6) draws at n_t = 100, GL-4, each target its
+    own curve (time window and noise) and draws. Each kernel is held to
+    the plain version target by target with the phase-3 gates and draw for
+    draw to one launch per target, and timed beside N_BATCH x its
+    one-target time at the same chunk (``single``, phase 3's slice shape)
+    and the bound, the sum of the targets' bounds (orbit_bound)."""
+    from triceratops_tpu_torch.ops.lightcurve import orbit_chunk
+
+    C, n_t = orbit_chunk(N_DRAWS), 100
+    per = [_draws(torch, C, n_t, NSAMPLES, 0.1 + 0.02 * b, seed=50 + b)
+           for b in range(N_BATCH)]
+    offs, wgts = per[0][2:]
+    kw = dict(offs=offs, wgts=wgts, ns=NSAMPLES)
+    orbit = [torch.stack([p[0][0] for p in per])] + [
+        torch.cat([p[0][i] for p in per]) for i in range(1, 6)]
+    rest = [torch.cat([p[1][i] for p in per]) for i in range(6)]
+    plain = chi2_core.chi2_from_orbit_plain(*orbit, *rest, **kw)
+    bounds = [orbit_bound(torch, chi2_core, p[0], p[1], offs, NSAMPLES)
+              for p in per]
+    bound_ms = sum(b[0] for b in bounds)
+    out = {}
+    for kname in ("chi2_from_orbit", "chi2_from_orbit_v3"):
+        fn = getattr(chi2_core, kname)
+        kern = fn(*orbit, *rest, **kw)
+        singles = torch.cat([fn(*p[0], *p[1], **kw) for p in per])
+        torch.cuda.synchronize()
+        check(torch.equal(kern, singles), f"{kname}: the {N_BATCH}-target "
+              "launch differs from one launch per target")
+        gates = [_gate(torch, f"B={N_BATCH} target {b} {kname}",
+                       kern[b * C:(b + 1) * C], plain[b * C:(b + 1) * C], C)
+                 for b in range(N_BATCH)]
+        ms = _median_ms(torch, lambda: fn(*orbit, *rest, **kw))
+        one = single[kname]
+        print(f"phase 3: targets {kname} B={N_BATCH} x C={C} n_t={n_t} "
+              f"nodes={len(offs)}: per target lnL diff p99 <= "
+              f"{max(g[0] for g in gates):.3g}, max <= "
+              f"{max(g[1] for g in gates):.3g}, lnZ diff <= "
+              f"{max(g[2] for g in gates):.3g}; equal to {N_BATCH} "
+              f"one-target launches; kernel {ms:.4f} ms (median), "
+              f"{N_BATCH} x one target {N_BATCH * one['ms']:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({N_BATCH} x one target's "
+              f"{N_BATCH * one['bound_ms']:.4f} ms)")
+        out[kname] = dict(ms=ms, bound_ms=bound_ms,
+                          max_abs_err=max(g[1] for g in gates))
+    return out
 
 
 def toi465_field():
@@ -910,11 +972,13 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     100, sigma = 4e-4, the 3000-star field): phase 4's target with its two
     nearby stars, and seven one-star targets from seeded (Rp, P) rows
     (BATCH_RP, BATCH_P) through tools/catalog_replay.build_target. Each
-    run must launch the v2 orbit kernel exactly once per computed row (15
-    per target plus 3 per nearby star) and nothing else. Returns the warm
-    run's launches."""
+    run must launch the v2 orbit kernel exactly once per computed row of
+    the batch (15 plus 3 per nearby-star slot: one family program per row
+    over all the targets) and nothing else. Returns the warm run's
+    launches."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
+    from triceratops_tpu_torch.ops import lightcurve
     from triceratops_tpu_torch.parallel import sharding
     from triceratops_tpu_torch.tools import catalog_replay
 
@@ -929,14 +993,14 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     entries = [sharding.target_entry(*c, key=100 + i)
                for i, c in enumerate(cases)]
     batch, n_t, has_cc = sharding.prepare_target_batch(entries, device="cuda")
-    expected = sum(15 + 3 * len(e["nearby"]) for e in entries)
+    expected = 15 + 3 * max(len(e["nearby"]) for e in entries)
     kw = dict(N=N_DRAWS, n_t=n_t, ns=NSAMPLES, has_cc=has_cc, device="cuda")
 
-    def timed(mesh):
+    def timed(mesh, b=batch):
         _reset(chi2_core)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = sharding.batch_fpp_full(mesh, batch, **kw)
+        out = sharding.batch_fpp_full(mesh, b, **kw)
         return out, time.perf_counter() - t0, _counts(chi2_core)
 
     def launches_ok(c, what):
@@ -944,9 +1008,13 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
               f"{what}: expected {expected} v2 orbit launches only, got {c}")
 
     cold, wall_cold, c_cold = timed(None)
+    torch.cuda.reset_peak_memory_stats()
     warm, wall_warm, c_warm = timed(None)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches_ok(c_cold, "phase 10 (i) cold")
     launches_ok(c_warm, "phase 10 (i) warm")
+    check(peak_gib <= BATCH_PEAK_GIB, f"phase 10 (i): the warm batch call "
+          f"peaked at {peak_gib:.3f} GiB (limit {BATCH_PEAK_GIB})")
     fpp, nfpp, lnZ = warm
     names = _row_names(lnZ.shape[1])
     valid = np.zeros(lnZ.shape, bool)
@@ -961,10 +1029,34 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
           f"mesh=None: cold {wall_cold:.4f} s, warm {wall_warm:.4f} s = "
           f"{wall_warm / N_BATCH:.4f} s/target (phase 6 warm median "
           f"{warm_median:.4f} s per 21-row call); {c_warm['launches_orbit']} "
-          f"orbit launches per call (expected {expected}); cold vs warm "
-          f"max |d lnZ| {rerun:.3g}")
+          f"orbit launches per call (expected {expected}); peak device "
+          f"memory {peak_gib:.3f} GiB (DRAW_CAP 2^"
+          f"{lightcurve.DRAW_CAP.bit_length() - 1}); cold vs warm max "
+          f"|d lnZ| {rerun:.3g}")
     print("phase 10 (i): FPP " + ", ".join(f"{v:.4g}" for v in fpp)
           + "; NFPP " + ", ".join(f"{v:.4g}" for v in nfpp))
+
+    walls, worst = [], 0.0
+    for i, e in enumerate(entries):
+        one, _, _ = sharding.prepare_target_batch([e], device="cuda")
+        (_, _, lnZ1), wall, c = timed(None, one)
+        walls.append(wall)
+        rows_i = 15 + 3 * len(e["nearby"])
+        check(_only(c, "launches_orbit")
+              and c["launches_orbit"] == rows_i,
+              f"phase 10 (i) target {i} alone: {c}")
+        n = lnZ1.shape[1]
+        check(np.array_equal(np.isneginf(lnZ1[0]), np.isneginf(lnZ[i, :n])),
+              f"phase 10 (i) target {i}: -inf rows differ alone")
+        fin = np.isfinite(lnZ1[0])
+        d = float(np.max(np.abs(lnZ1[0][fin] - lnZ[i, :n][fin])))
+        check(d <= BATCH_VS_ONE_NATS, f"phase 10 (i) target {i}: batch vs "
+              f"alone, max |d lnZ| {d}")
+        worst = max(worst, d)
+    print(f"phase 10 (i): the same targets one at a time (B = 1 batches, "
+          f"same seeds) {sum(walls):.4f} s = {sum(walls) / N_BATCH:.4f} "
+          f"s/target; per-row lnZ vs the batch max |d| {worst:.3g} nats "
+          f"(limit {BATCH_VS_ONE_NATS})")
 
     walls, worst = [], 0.0
     for i, (t, tm, fl, sg, Pp) in enumerate(cases):
@@ -1153,6 +1245,8 @@ def main():
         build_s = phase_build(chi2_core)
         phase_tf32_coeffs(torch)
         timing = phase_kernel(torch, chi2_core)
+        timing["targets"] = phase_kernel_targets(torch, chi2_core,
+                                                 timing["slice"])
         with tempfile.TemporaryDirectory() as workdir:
             launches, run, t, med = phase_slice(torch, chi2_core, tr,
                                                 workdir)
@@ -1190,6 +1284,9 @@ def main():
         for key in ("transpose_ms", "yardstick_ms", "C"):
             if k.get(key) is not None:
                 row[key] = k[key]
+        if name in timing["targets"]:
+            row[f"ms_b{N_BATCH}"] = timing["targets"][name]["ms"]
+            row[f"bound_ms_b{N_BATCH}"] = timing["targets"][name]["bound_ms"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

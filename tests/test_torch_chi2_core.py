@@ -320,7 +320,7 @@ class TestOrbitKernel:
         with pytest.raises(ValueError, match="shape"):
             fn(*args[:3], args[3][:128], *args[4:], **kw)
         with pytest.raises(ValueError, match="1-d"):
-            fn(args[0][None, :], *args[1:], **kw)
+            fn(args[0][None, None, :], *args[1:], **kw)
         with pytest.raises(ValueError, match="contiguous"):
             fn(*args[:6], args[6].t().contiguous().t(), *args[7:], **kw)
         short = (args[0], *(x[:tile // 2] for x in args[1:11]), args[11])

@@ -135,7 +135,8 @@ def test_batch_matches_jax_one_process(targets, molusc, molusc_file,
     contrast curve. The MOLUSC case drops the nine rows that read no
     MOLUSC row (their families run no sampler and no core there), so it
     also checks drop_scenario: dropped rows read -inf and the rows left
-    run one likelihood core each (padding nearby slots none)."""
+    run one likelihood core each over both targets (padding nearby slots
+    none)."""
     tg = [dict(t, molusc_file=molusc_file) for t in targets] if molusc \
         else targets
     drop = NO_MOLUSC if molusc else ()
@@ -154,7 +155,7 @@ def test_batch_matches_jax_one_process(targets, molusc, molusc_file,
     assert lnZ.shape == (2, 18)
     assert np.all(np.isneginf(lnZ[1, 15:])) and got[1][1] == 0.0
     kept = 15 - len(drop)
-    assert len(cores) == 2 * kept + 3
+    assert len(cores) == kept + 3
     dropped = [i for i, s in enumerate(tsh.FULL_SCENARIOS) if s in drop]
     assert np.all(np.isneginf(lnZ[:, dropped]))
     assert np.isfinite(lnZ[0]).sum() == kept + 3

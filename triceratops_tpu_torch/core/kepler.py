@@ -82,6 +82,18 @@ def solve_kepler_sc(M, e):
     return s * E + two_pi * k, s * sinEf, cosEf
 
 
+def solve_kepler(M, e):
+    """Solve E - e sin E = M for E (see solve_kepler_sc)."""
+    return solve_kepler_sc(M, e)[0]
+
+
+def true_anomaly_from_E(E, e):
+    """True anomaly of eccentric anomaly E (e clipped to [0, E_MAX])."""
+    e = torch.clamp(e, 0.0, E_MAX)
+    sq = torch.sqrt((1.0 + e) / (1.0 - e))
+    return 2.0 * torch.atan2(sq * torch.sin(E / 2.0), torch.cos(E / 2.0))
+
+
 def mean_anomaly_at_transit(e, w):
     """Mean anomaly at inferior conjunction (nu = pi/2 - w)."""
     e = torch.clamp(e, 0.0, E_MAX)

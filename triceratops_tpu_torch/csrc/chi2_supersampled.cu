@@ -59,6 +59,16 @@
 // Both are deterministic. Points inside a group or block that does run keep
 // their ~1e-8 deficit residue at z >= zmax, as on the TPU.
 //
+// Targets: the orbit entry points take B targets in one launch (the
+// counterpart of jax.vmap over the Pallas call, whose grid gains a target
+// axis). The C draws are target-major, Cb = C / B per target, and draw c
+// reads its own target's exposure times and observed curve, rows
+// b = c / Cb of time (B, n_t) and obs (B, n_t). Cb is a multiple of the
+// schedule's draw tile (256 for v2, 128 for v3), so a block never mixes
+// targets: b is computed from the block index, a value uniform over the
+// block that the compiler keeps in uniform registers, and the warp votes
+// stay per target. The plane entry points are one target (Cb = C).
+//
 // Float32 semantics: square roots and divisions stay IEEE, sin/cos/atan2
 // are the accurate sinf/cosf/atan2f (no --use_fast_math, no __sinf), the
 // cube root is cbrtf (the torch version's |x|^(1/3) pow differs by an ulp;
@@ -78,6 +88,7 @@ constexpr int M_CHEB = 18;
 constexpr int MAX_NODES = 4;
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int V3_THREADS = 32;    // one warp per block spreads small C
+constexpr int V3_MIN_BLOCKS = 16;
 constexpr int V3_DRAW_LANES = 128;
 constexpr int TIME_SUB = 8;
 
@@ -109,8 +120,9 @@ struct Chi2Args {
   const float* cB2;
   const float* seg;
   const float* g;
-  const float* obs;
+  const float* obs;   // (B, n_t), row c / Cb for draw c
   float* out;
+  int Cb;             // draws per target
 };
 
 // One draw's deficit coefficients and segment scalars, in registers.
@@ -137,8 +149,10 @@ __device__ __forceinline__ void load_coeffs(DrawCoeffs& k, const Chi2Args& p,
 }
 
 // ---------------------------------------------------------------------------
-// z^2 sources. Each has a Draw of per-draw state (draw(c), once per draw)
-// and point(d, t, q0, q1, q2, front) for one exposure t of that draw.
+// z^2 sources. Each has target(row), the source for the target whose rows
+// of time and obs start at offset row, a Draw of per-draw state (draw(c),
+// once per draw) and point(d, t, q0, q1, q2, front) for one exposure t of
+// that draw.
 
 // The four planes in device memory, draw-major (C, n_t) for v2 or
 // time-major (n_t, C) for v3; stride is the length of a row (n_t or C).
@@ -154,6 +168,10 @@ struct PlaneSource {
   struct Draw {
     int64_t base;
   };
+  // one target: the planes hold no time axis of their own
+  __device__ __forceinline__ PlaneSource target(int64_t) const {
+    return *this;
+  }
   __device__ __forceinline__ Draw draw(int c) const {
     return {TimeMajor ? (int64_t)c : (int64_t)c * stride};
   }
@@ -224,6 +242,12 @@ struct OrbitSource {
     float P;          // projected_z: M = M_tc + 2pi t / P
     float aRen, aRenn, nome2, m2enno;   // products z2_taylor forms first
   };
+
+  __device__ __forceinline__ OrbitSource target(int64_t row) const {
+    OrbitSource s = *this;
+    s.time = time + row;
+    return s;
+  }
 
   __device__ __forceinline__ Draw draw(int c) const {
     Draw d;
@@ -354,11 +378,16 @@ __device__ __forceinline__ float point_deficit(const float (&z2)[S],
 
 template <class Src, int S>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-chi2_kernel(Src src, Chi2Args p, int C, int n_t, Nodes nodes) {
+chi2_kernel(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   if (c >= C) return;  // whole warp leaves together
 
+  // the block's target (Cb % WARPS_PER_BLOCK == 0)
+  const int64_t row =
+      (int64_t)((blockIdx.x * WARPS_PER_BLOCK) / p.Cb) * n_t;
+  const Src src = src_all.target(row);
+  const float* obs = p.obs + row;
   DrawCoeffs k;
   load_coeffs(k, p, c);
   const float gc = __ldg(p.g + c);
@@ -374,7 +403,7 @@ chi2_kernel(Src src, Chi2Args p, int C, int n_t, Nodes nodes) {
     if (inb) {
       float a0, a1, a2;
       src.point(d, t, a0, a1, a2, fr);
-      ob = __ldg(p.obs + t);
+      ob = __ldg(obs + t);
       active = exposure_z2<S>(a0, a1, a2, nodes, k.zmax2, z2);
       active &= fr > 0.0f;
       acc += ob * ob;
@@ -389,15 +418,24 @@ chi2_kernel(Src src, Chi2Args p, int C, int n_t, Nodes nodes) {
   if (lane == 0) p.out[c] = acc;
 }
 
+// At least V3_MIN_BLOCKS one-warp blocks per SM caps the kernel at 128
+// registers a thread: left free, the orbit source at four nodes takes 159
+// and runs 12 warps per SM instead of 16, 1.3x slower on an H100 (a few
+// bytes spill at 128).
 template <class Src, int S>
-__global__ void __launch_bounds__(V3_THREADS)
-chi2_kernel_v3(Src src, Chi2Args p, int C, int n_t, Nodes nodes) {
+__global__ void __launch_bounds__(V3_THREADS, V3_MIN_BLOCKS)
+chi2_kernel_v3(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * V3_THREADS + threadIdx.x;  // C % 128 == 0
+  // the block's target (Cb % V3_THREADS == 0)
+  const int64_t row = (int64_t)((blockIdx.x * V3_THREADS) / p.Cb) * n_t;
+  const Src src = src_all.target(row);
+  const float* obs = p.obs + row;
 
-  // sum_t obs^2, the same for every draw: lane-strided, then a butterfly
+  // sum_t obs^2, the same for every draw of the target: lane-strided, then
+  // a butterfly
   float obs2 = 0.0f;
-  for (int t = lane; t < n_t; t += 32) obs2 += p.obs[t] * p.obs[t];
+  for (int t = lane; t < n_t; t += 32) obs2 += obs[t] * obs[t];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     obs2 += __shfl_xor_sync(0xffffffffu, obs2, o);
@@ -430,7 +468,7 @@ chi2_kernel_v3(Src src, Chi2Args p, int C, int n_t, Nodes nodes) {
 #pragma unroll
     for (int j = 0; j < TIME_SUB; ++j) {
       if (t0 + j < n_t) {
-        const float ob = p.obs[t0 + j];
+        const float ob = obs[t0 + j];
         const float gD = gc * (point_deficit<S>(z2[j], k, nodes) * fr[j]);
         acc += gD * (2.0f * ob + gD);
       }
@@ -470,6 +508,8 @@ int launch(const Src& src, const Chi2Args& p, int C, int n_t,
   if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
     return (int)cudaErrorInvalidValue;
   if (V3 && (C <= 0 || C % V3_DRAW_LANES)) return (int)cudaErrorInvalidValue;
+  if (p.Cb <= 0 || C % p.Cb || p.Cb % (V3 ? V3_THREADS : WARPS_PER_BLOCK))
+    return (int)cudaErrorInvalidValue;
   const Nodes nodes = make_nodes(offs, wgts, n_nodes);
   cudaStream_t st = (cudaStream_t)stream;
   if constexpr (Src::kOneNode) {
@@ -511,8 +551,8 @@ extern "C" int chi2_supersampled_launch(
     const float* g, const float* obs, float* out, int C, int n_t,
     const float* offs, const float* wgts, int n_nodes, void* stream) {
   return launch<false>(PlaneSource<false>{q0, q1, q2, front, n_t},
-                Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs, wgts,
-                n_nodes, stream);
+                Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}, C, n_t, offs,
+                wgts, n_nodes, stream);
 }
 
 // v3 on planes: q0t, q1t, q2t, frontt are time-major (n_t, C); C % 128 == 0.
@@ -523,31 +563,32 @@ extern "C" int chi2_supersampled_v3_launch(
     int n_t, const float* offs, const float* wgts, int n_nodes,
     void* stream) {
   return launch<true>(PlaneSource<true>{q0t, q1t, q2t, frontt, C},
-                Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs, wgts,
-                n_nodes, stream);
+                Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}, C, n_t, offs,
+                wgts, n_nodes, stream);
 }
 
-// v2 on the orbit: time (n_t,); P, aR, inc, e, w (C,). projected != 0
-// selects projected_z and needs n_nodes == 1.
+// v2 on the orbit for B = C / Cb targets: time and obs (B, n_t); P, aR,
+// inc, e, w (C,), target-major. projected != 0 selects projected_z and
+// needs n_nodes == 1.
 extern "C" int chi2_from_orbit_launch(
     const float* time, const float* P, const float* aR, const float* inc,
     const float* e, const float* w, const float* cA, const float* cB1,
     const float* cB2, const float* seg, const float* g, const float* obs,
     float* out, int C, int n_t, const float* offs, const float* wgts,
-    int n_nodes, int projected, void* stream) {
+    int n_nodes, int projected, int Cb, void* stream) {
   return launch_orbit<false>(time, P, aR, inc, e, w,
-                      Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs,
-                      wgts, n_nodes, projected, stream);
+                      Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}, C, n_t,
+                      offs, wgts, n_nodes, projected, stream);
 }
 
-// v3 on the orbit: the same arguments; C % 128 == 0.
+// v3 on the orbit: the same arguments; Cb % 128 == 0.
 extern "C" int chi2_from_orbit_v3_launch(
     const float* time, const float* P, const float* aR, const float* inc,
     const float* e, const float* w, const float* cA, const float* cB1,
     const float* cB2, const float* seg, const float* g, const float* obs,
     float* out, int C, int n_t, const float* offs, const float* wgts,
-    int n_nodes, int projected, void* stream) {
+    int n_nodes, int projected, int Cb, void* stream) {
   return launch_orbit<true>(time, P, aR, inc, e, w,
-                      Chi2Args{cA, cB1, cB2, seg, g, obs, out}, C, n_t, offs,
-                      wgts, n_nodes, projected, stream);
+                      Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}, C, n_t,
+                      offs, wgts, n_nodes, projected, stream);
 }

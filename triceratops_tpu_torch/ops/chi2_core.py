@@ -13,6 +13,9 @@ comes from:
 * ``chi2_from_orbit`` / ``chi2_from_orbit_v3`` compute it inside the
   kernel from each draw's orbit and the exposure times (the main path:
   ``ops/lightcurve.py::_chi2_fused``), so no (C, n_t) tensor is made.
+  They take B targets in one launch, the counterpart of ``jax.vmap`` over
+  the Pallas call: time and obs_dev (B, n_t), the draws target-major, Cb
+  = C / B per target, a multiple of the schedule's draw tile.
 
 On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
 plain torch version (``chi2_supersampled_plain``,
@@ -101,7 +104,7 @@ def _load():
             fn.restype = ctypes.c_int
         for fn in (lib.chi2_from_orbit_launch, lib.chi2_from_orbit_v3_launch):
             fn.argtypes = ([ctypes.c_void_p] * 13 + tail
-                           + [ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -127,9 +130,9 @@ def _check_arrays(arrs, shapes, offs, wgts):
                          f"each, got {len(offs)} and {len(wgts)}")
 
 
-def _coeff_shapes(C, n_t):
+def _coeff_shapes(C, n_t, B=1):
     return dict(cA=(C, M_CHEB), cB1=(C, M_CHEB), cB2=(C, M_CHEB),
-                seg=(C, 5), g=(C, 1), obs_dev=(1, n_t))
+                seg=(C, 5), g=(C, 1), obs_dev=(B, n_t))
 
 
 def _check(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, offs, wgts,
@@ -147,19 +150,28 @@ def _check(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, offs, wgts,
 
 def _check_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
                  offs, wgts, ns, tile):
-    if time.dim() != 1 or P.dim() != 1:
-        raise ValueError(f"time and P must be 1-d, got {tuple(time.shape)} "
-                         f"and {tuple(P.shape)}")
-    n_t, C = time.shape[0], P.shape[0]
-    if C % tile:
-        raise ValueError(f"chunk {C} must be a multiple of {tile}")
+    """The orbit entry points' checks; returns Cb, the draws per target.
+    time (n_t,) is one target, time (B, n_t) B targets."""
+    if time.dim() not in (1, 2) or P.dim() != 1:
+        raise ValueError(f"time must be (n_t,) or (B, n_t) and P 1-d, got "
+                         f"{tuple(time.shape)} and {tuple(P.shape)}")
+    B = time.shape[0] if time.dim() == 2 else 1
+    n_t, C = time.shape[-1], P.shape[0]
+    if B < 1 or C % B:
+        raise ValueError(f"{C} draws are not B x Cb for B = {B} targets")
+    Cb = C // B
+    if Cb % tile:
+        raise ValueError(f"draws per target {Cb} (chunk {C}, B = {B}) must "
+                         f"be a multiple of {tile}")
     _check_arrays(dict(time=time, P=P, a_R=a_R, inc=inc, e=e, w=w, cA=cA,
                        cB1=cB1, cB2=cB2, seg=seg, g=g, obs_dev=obs_dev),
-                  dict(time=(n_t,), P=(C,), a_R=(C,), inc=(C,), e=(C,),
-                       w=(C,), **_coeff_shapes(C, n_t)), offs, wgts)
+                  dict(time=tuple(time.shape), P=(C,), a_R=(C,), inc=(C,),
+                       e=(C,), w=(C,), **_coeff_shapes(C, n_t, B)), offs,
+                  wgts)
     if ns < 1 or (ns == 1 and (offs, wgts) != ((0.0,), (1.0,))):
         raise ValueError(f"ns = {ns}: ns = 1 takes the one node offs = (0,), "
                          f"wgts = (1,), got {offs} and {wgts}")
+    return Cb
 
 
 def chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg, g,
@@ -296,10 +308,20 @@ def orbit_planes(time, P, a_R, inc, e, w, ns):
 def chi2_from_orbit_plain(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
                           obs_dev, *, offs, wgts, ns):
     """Plain torch version of both orbit kernels (any device): the planes of
-    ``orbit_planes``, then ``chi2_supersampled_plain``."""
-    return chi2_supersampled_plain(*orbit_planes(time, P, a_R, inc, e, w, ns),
-                                   cA, cB1, cB2, seg, g, obs_dev, offs=offs,
-                                   wgts=wgts)
+    ``orbit_planes``, then ``chi2_supersampled_plain``. With time (B, n_t)
+    the draws are target-major, Cb = C / B per target, and each target's
+    draws run on its own rows of time and obs_dev."""
+    if time.dim() == 1:
+        return chi2_supersampled_plain(
+            *orbit_planes(time, P, a_R, inc, e, w, ns), cA, cB1, cB2, seg, g,
+            obs_dev, offs=offs, wgts=wgts)
+    Cb = P.shape[0] // time.shape[0]
+    draws = (P, a_R, inc, e, w, cA, cB1, cB2, seg, g)
+    return torch.cat([
+        chi2_from_orbit_plain(time[b], *(x[b * Cb:(b + 1) * Cb]
+                                         for x in draws),
+                              obs_dev[b:b + 1], offs=offs, wgts=wgts, ns=ns)
+        for b in range(time.shape[0])])
 
 
 def chi2_from_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
@@ -308,26 +330,28 @@ def chi2_from_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
     the exposure z^2 model computed inside the kernel.
 
     Args (all float32, contiguous, on one device):
-        time: (n_t,) exposure centres.
-        P, a_R, inc, e, w: (C,) each draw's orbit (transit epoch 0).
-        cA, cB1, cB2, seg, g, obs_dev: as ``chi2_supersampled``.
+        time: (n_t,) exposure centres of one target, or (B, n_t) of B.
+        P, a_R, inc, e, w: (C,) each draw's orbit (transit epoch 0); with
+            B targets target-major, Cb = C / B draws each.
+        cA, cB1, cB2, seg, g: as ``chi2_supersampled``.
+        obs_dev: (B, n_t) observed flux - 1 ((1, n_t) for one target).
         offs, wgts: exposure quadrature nodes and weights (1 to 4 floats).
         ns: supersamples per exposure; ns > 1 takes the Taylor z^2 model
             (``exposure_z2_poly``) at the nodes, ns = 1 the exact
             ``projected_z`` at the one node offs = (0,), wgts = (1,).
     Returns:
         (C,) sum of squared residuals (divide by sigma^2 outside).
-    C must be a multiple of 256. A CPU tensor runs the plain version; a
-    CUDA tensor launches the kernel.
+    Cb must be a multiple of 256. A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel, once for all B targets.
     """
     global launches_orbit
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev)
-    _check_orbit(*args, offs, wgts, ns, DRAW_TILE)
+    Cb = _check_orbit(*args, offs, wgts, ns, DRAW_TILE)
     if not _device_path(P):
         return chi2_from_orbit_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch("chi2_from_orbit", args, P.shape[0], time.shape[0], offs,
-                  wgts, int(ns == 1))
+    out = _launch("chi2_from_orbit", args, P.shape[0], time.shape[-1], offs,
+                  wgts, int(ns == 1), Cb)
     launches_orbit += 1
     return out
 
@@ -335,15 +359,15 @@ def chi2_from_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
 def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
                        obs_dev, *, offs, wgts, ns):
     """chi^2 for one draw chunk, v3 schedule (one thread per draw): the same
-    arguments, checks and result as ``chi2_from_orbit``, with C a multiple
+    arguments, checks and result as ``chi2_from_orbit``, with Cb a multiple
     of 128."""
     global launches_orbit_v3
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev)
-    _check_orbit(*args, offs, wgts, ns, DRAW_LANES)
+    Cb = _check_orbit(*args, offs, wgts, ns, DRAW_LANES)
     if not _device_path(P):
         return chi2_from_orbit_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch("chi2_from_orbit_v3", args, P.shape[0], time.shape[0],
-                  offs, wgts, int(ns == 1))
+    out = _launch("chi2_from_orbit_v3", args, P.shape[0], time.shape[-1],
+                  offs, wgts, int(ns == 1), Cb)
     launches_orbit_v3 += 1
     return out

@@ -24,6 +24,16 @@ Paths per call:
 
 The EB secondary-eclipse veto (diluted secondary depth >= 1.5 sigma) is a
 mask: excluded draws keep zero weight but count in N_total.
+
+A core takes one target (time and obs_dev (n_t,), sigma a scalar) or B
+targets at once, the counterpart of the JAX package's ``jax.vmap`` over a
+core (``parallel/sharding.py::_build_family_step``): time and obs_dev
+(B, n_t), sigma (B,), the per-draw arrays B * N draws target-major. Each
+target's draws are padded to whole chunks on their own, and each draw's
+lnL is what its target alone gives. On a CUDA tensor under
+``backend="auto"`` the targets' chunks go to the orbit kernel together,
+one launch over as many whole targets as ``DRAW_CAP`` holds; elsewhere
+each chunk runs on its own.
 """
 
 from __future__ import annotations
@@ -58,6 +68,14 @@ CHI2_SCHEDULE = os.environ.get("TRICERATOPS_PALLAS_V", "2")
 # so a 1e6-draw core runs as one launch and larger N stays bounded
 ORBIT_CHUNK_MAX = 1 << 20
 
+# Most draws one orbit-kernel launch of a batched core takes: whole targets
+# (one chunk each) go to one launch while their padded draws fit. Set from
+# memory, not speed: the coefficient stage holds (C, 152) and (C, 162) f32
+# products per launch, ~1.3 KB a draw; at 2^23 (8 targets of 1000192) an
+# 8-target batch call peaks at 14.2 GiB on the card, and twice the draws
+# would take the stage alone past 20 GiB (PERF.md)
+DRAW_CAP = 1 << 23
+
 _GL_EXPO_MAX = 4
 
 
@@ -77,16 +95,19 @@ def supersample_times(time: np.ndarray, exptime: float,
     return (time[:, None] + offs[None, :]).reshape(-1)
 
 
-def _pad_chunk(arrs, N, chunk):
-    """Zero-pad each (N, ...) tensor to whole chunks and view it as
-    (n_chunks, chunk, ...). Padded draws carry mask = False."""
+def _pad_chunk(arrs, N, chunk, B=1):
+    """Zero-pad each target's N draws of each (B * N, ...) tensor to whole
+    chunks and view it as (B * n_chunks, chunk, ...), target-major. Padded
+    draws carry mask = False."""
     n_chunks = -(-N // chunk)
     pad = n_chunks * chunk - N
     out = []
     for a in arrs:
+        rest = tuple(a.shape[1:])
+        a = a.reshape((B, N) + rest)
         if pad:
-            a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
-        out.append(a.reshape((n_chunks, chunk) + tuple(a.shape[1:])))
+            a = torch.cat([a, a.new_zeros((B, pad) + rest)], dim=1)
+        out.append(a.reshape((B * n_chunks, chunk) + rest))
     return out
 
 
@@ -157,7 +178,9 @@ def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
     ``chi2_core.chi2_from_orbit`` or, under ``CHI2_SCHEDULE == "3"``,
     ``chi2_core.chi2_from_orbit_v3`` (a kernel on CUDA, the plain version
     on CPU): GL exposure nodes and the Taylor z^2 model for ns > 1, the
-    exact projected separation at one node for ns = 1."""
+    exact projected separation at one node for ns = 1. time and obs_dev
+    are (n_t,) for one target or (B, n_t), the draws then B equal
+    target-major blocks."""
     cA, cB1, cB2, zsplit, zmid, invA, invB1, invB2 = deficit_coeffs(k, u1, u2)
     if ns > 1:
         offs, wgt = _gl_exposure_nodes(exptime, ns)
@@ -168,25 +191,105 @@ def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
           else chi2_core.chi2_from_orbit)
     return fn(*(x.contiguous() for x in (time, P, a_R, inc, e, w, cA, cB1,
                                          cB2)),
-              seg, g[:, None].contiguous(), obs_dev[None, :].contiguous(),
-              offs=offs, wgts=wgt, ns=ns)
+              seg, g[:, None].contiguous(),
+              obs_dev.reshape(-1, time.shape[-1]).contiguous(), offs=offs,
+              wgts=wgt, ns=ns)
 
 
-def _sigma_terms(sigma):
-    """(1/sigma^2, ln sigma) in float32, as the JAX cores form them."""
-    sigma = np.float32(sigma)
-    return float(np.float32(1.0) / (sigma * sigma)), float(np.log(sigma))
+def _targets(time, obs_dev, sigma, n_draws):
+    """A core's targets: time and obs_dev as (B, n_t), sigma as a (B,)
+    float32 array, N (the draws per target), and per target as (B, 1)
+    float32 tensors the lnL constant -0.5 ln 2pi - ln sigma and 1/sigma^2,
+    formed as the JAX cores form them. time (n_t,) with a scalar sigma is
+    one target."""
+    if time.dim() == 1:
+        time, obs_dev = time[None, :], obs_dev[None, :]
+    B, n_t = time.shape
+    sig = np.asarray(sigma, np.float32).reshape(-1)
+    if tuple(obs_dev.shape) != (B, n_t) or sig.shape != (B,):
+        raise ValueError(f"time {tuple(time.shape)} needs obs_dev ({B}, "
+                         f"{n_t}) and {B} sigmas, got {tuple(obs_dev.shape)} "
+                         f"and {sig.shape[0]}")
+    if n_draws % B:
+        raise ValueError(f"{n_draws} draws do not split over {B} targets")
+    inv = np.float32(1.0) / (sig * sig)
+    const = (-0.5 * LN2PI - np.log(sig).astype(np.float64)).astype(np.float32)
+    const, inv = (torch.as_tensor(a[:, None], device=time.device)
+                  for a in (const, inv))
+    return time, obs_dev, sig, n_draws // B, const, inv
+
+
+def _launch_groups(B, n_chunks, chunk, grouped):
+    """(targets, draws) slices of each step of a core over the padded
+    (B * n_chunks * chunk,) draws: with ``grouped`` and one chunk per
+    target, as many whole targets per step as ``DRAW_CAP`` holds (at least
+    one); otherwise one chunk per step."""
+    per = max(1, DRAW_CAP // chunk) if grouped and n_chunks == 1 else 1
+    for p0 in range(0, B * n_chunks, per):
+        p1 = min(p0 + per, B * n_chunks)
+        b0 = p0 // n_chunks
+        yield slice(b0, (p1 - 1) // n_chunks + 1), slice(p0 * chunk,
+                                                          p1 * chunk)
+
+
+def _core_steps(arrs, B, N, chunk, grouped):
+    """The steps of a core over B targets' draws, each target's padded to
+    whole chunks (``_pad_chunk``): per step its (targets, draws) slices
+    (``_launch_groups``) and its slice of each of ``arrs``."""
+    parts = [p.reshape((-1,) + tuple(p.shape[2:]))
+             for p in _pad_chunk(arrs, N, chunk, B)]
+    for tg, dr in _launch_groups(B, -(-N // chunk), chunk, grouped):
+        yield tg, dr, [p[dr] for p in parts]
+
+
+def _unpad(out, B, N):
+    """The (B * N,) draws of a core's padded (B * n_chunks * chunk,)
+    output."""
+    return out.view(B, -1)[:, :N].reshape(-1)
 
 
 def _chunk_chi2(time, exptime, obs_dev, kc, Pc, ac, ic, ec, wc, u1c, u2c,
                 gc, n_t, ns, exact, backend):
+    """chi^2 of one step's draws; time and obs_dev (B, n_t), B > 1 only
+    on the fused path."""
     if backend == "auto" and not exact:
         return _chi2_fused(time, exptime, obs_dev, kc, Pc, ac, ic, ec, wc,
                            u1c, u2c, gc, n_t, ns)
+    (time,), (obs_dev,) = time, obs_dev
     D = _mean_deficit(time, exptime, kc, Pc, ac, ic, ec, wc, u1c, u2c, n_t,
                       ns, exact)
     resid = obs_dev[None, :] + gc[:, None] * D
     return torch.sum(resid * resid, dim=1)
+
+
+def _secondary_depth(sec_grid, P, a_R, inc, e, w, ksec, u1, u2, g_sec):
+    """Diluted secondary-eclipse depth per draw: the deficit is monotone
+    non-increasing in z, so the 25-point scan's maximum is one exact
+    kernel evaluation at the minimum in-front z. The (25, C) scan is
+    formed ORBIT_CHUNK_MAX draws at a time, so its memory stays that of
+    one target's core whatever the step's size."""
+    out = []
+    for i in range(0, P.shape[0], ORBIT_CHUNK_MAX):
+        s = slice(i, i + ORBIT_CHUNK_MAX)
+        zs, fronts = projected_z(sec_grid[:, None], 0.0, P[None, s],
+                                 a_R[None, s], inc[None, s], e[None, s],
+                                 w[None, s] + math.pi)
+        big = torch.full_like(zs, 1e30)
+        z_eff = torch.min(torch.where(fronts, zs, big), dim=0).values
+        has_front = torch.any(fronts, dim=0)
+        D_eff = occult_quad_deficit(ksec[s], torch.clamp_max(z_eff, 1e30),
+                                    u1[s], u2[s])
+        out.append(g_sec[s] * torch.where(has_front, D_eff,
+                                          torch.zeros_like(D_eff)))
+    return torch.cat(out)
+
+
+def _lnL(chi2, mask, const, inv):
+    """lnL = const - 0.5 chi^2 / sigma^2 of one step, -inf where masked
+    out; const and inv are the step's (B, 1) rows."""
+    chi2 = chi2.view(const.shape[0], -1) * inv
+    lnL = (const - 0.5 * chi2).view(-1)
+    return torch.where(mask, lnL, torch.full_like(lnL, -math.inf))
 
 
 def _kernel_chunk(chunk):
@@ -206,6 +309,12 @@ def orbit_chunk(N: int) -> int:
     return -(-per // chi2_core.DRAW_TILE) * chi2_core.DRAW_TILE
 
 
+def _grouped(time, exact, backend):
+    """Whether a core's targets share launches: the orbit kernels on a CUDA
+    tensor."""
+    return backend == "auto" and not exact and time.device.type == "cuda"
+
+
 def _core_chunk(chunk, N, time, n_t, ns, exact, backend):
     """The draw chunk a core runs: the caller's ``chunk`` if given, else
     ``orbit_chunk(N)`` where the orbit kernels run (a CUDA tensor under
@@ -214,9 +323,8 @@ def _core_chunk(chunk, N, time, n_t, ns, exact, backend):
     bounds. Under ``backend="auto"`` it is rounded up to the kernel's draw
     multiple."""
     if chunk is None:
-        orbit = (backend == "auto" and not exact
-                 and time.device.type == "cuda")
-        chunk = orbit_chunk(N) if orbit else draw_chunk(n_t, ns)
+        chunk = (orbit_chunk(N) if _grouped(time, exact, backend)
+                 else draw_chunk(n_t, ns))
     return _kernel_chunk(chunk) if backend == "auto" else chunk
 
 
@@ -229,25 +337,27 @@ def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
                *, exptime: float, n_t: int, ns: int,
                chunk: int | None = None, exact: bool = False,
                backend: str = "auto"):
-    """Transiting-planet family log-likelihoods for N draws.
+    """Transiting-planet family log-likelihoods for N draws of one target,
+    or N per target of B (module docstring).
 
-    Returns lnL (N,) = -0.5 ln 2pi - ln sigma - 0.5 chi^2 for masked-in
-    draws, -inf otherwise (reference marginal_likelihoods.py:117-137).
-    ``chunk`` (draws per step) is picked by ``_core_chunk`` unless given."""
+    Returns lnL (B * N,) = -0.5 ln 2pi - ln sigma - 0.5 chi^2 for
+    masked-in draws, -inf otherwise (reference
+    marginal_likelihoods.py:117-137). ``chunk`` (draws per step and
+    target) is picked by ``_core_chunk`` unless given."""
     _check_backend(backend)
-    N = k.shape[0]
-    inv_sig2, ln_sigma = _sigma_terms(sigma)
+    time, obs_dev, _, N, const, inv = _targets(time, obs_dev, sigma,
+                                               k.shape[0])
+    B = time.shape[0]
     chunk = _core_chunk(chunk, N, time, n_t, ns, exact, backend)
-    parts = _pad_chunk([k, P, a_R, inc, e, w, u1, u2, g, mask], N, chunk)
-    out = torch.empty((parts[0].shape[0], chunk), dtype=time.dtype,
+    out = torch.empty((B * -(-N // chunk) * chunk,), dtype=time.dtype,
                       device=time.device)
-    for i in range(out.shape[0]):
-        kc, Pc, ac, ic, ec, wc, u1c, u2c, gc, mc = (p[i] for p in parts)
-        chi2 = _chunk_chi2(time, exptime, obs_dev, kc, Pc, ac, ic, ec, wc,
-                           u1c, u2c, gc, n_t, ns, exact, backend) * inv_sig2
-        lnL = (-0.5 * LN2PI - ln_sigma) - 0.5 * chi2
-        out[i] = torch.where(mc, lnL, torch.full_like(lnL, -math.inf))
-    return out.reshape(-1)[:N]
+    for tg, dr, (kc, Pc, ac, ic, ec, wc, u1c, u2c, gc, mc) in _core_steps(
+            [k, P, a_R, inc, e, w, u1, u2, g, mask], B, N, chunk,
+            _grouped(time, exact, backend)):
+        chi2 = _chunk_chi2(time[tg], exptime, obs_dev[tg], kc, Pc, ac, ic,
+                           ec, wc, u1c, u2c, gc, n_t, ns, exact, backend)
+        out[dr] = _lnL(chi2, mc, const[tg], inv[tg])
+    return _unpad(out, B, N)
 
 
 def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
@@ -257,41 +367,33 @@ def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
     """Eclipsing-binary family log-likelihoods for N draws.
 
     k is the (quirk-adjusted) primary radius ratio, ksec the secondary
-    one. With apply_veto, draws whose diluted secondary depth is >= 1.5
-    sigma are excluded (ref likelihoods.py:535-538); the twin branch
-    passes apply_veto=False. The deficit is monotone non-increasing in z,
-    so the 25-point secondary scan's maximum deficit is one exact kernel
-    evaluation at the minimum in-front z. ``chunk`` as in ``lnL_planet``."""
+    one. With apply_veto, draws whose diluted secondary depth
+    (``_secondary_depth``) is >= 1.5 sigma of their target are excluded
+    (ref likelihoods.py:535-538); the twin branch passes
+    apply_veto=False. Targets and ``chunk`` as in ``lnL_planet``."""
     _check_backend(backend)
-    N = k.shape[0]
-    inv_sig2, ln_sigma = _sigma_terms(sigma)
+    time, obs_dev, sig, N, const, inv = _targets(time, obs_dev, sigma,
+                                                 k.shape[0])
+    B = time.shape[0]
+    veto = torch.as_tensor((np.float32(1.5) * sig)[:, None],
+                           device=time.device)
     chunk = _core_chunk(chunk, N, time, n_t, ns, exact, backend)
     sec_grid = torch.as_tensor(SEC_GRID, dtype=time.dtype, device=time.device)
-    parts = _pad_chunk([k, ksec, P, a_R, inc, e, w, u1, u2, g_pri, g_sec,
-                        mask], N, chunk)
-    out = torch.empty((parts[0].shape[0], chunk), dtype=time.dtype,
+    out = torch.empty((B * -(-N // chunk) * chunk,), dtype=time.dtype,
                       device=time.device)
-    veto_depth = float(np.float32(1.5) * np.float32(sigma))
-    for i in range(out.shape[0]):
-        (kc, ksc, Pc, ac, ic, ec, wc, u1c, u2c, gpc, gsc,
-         mc) = (p[i] for p in parts)
-        chi2 = _chunk_chi2(time, exptime, obs_dev, kc, Pc, ac, ic, ec, wc,
-                           u1c, u2c, gpc, n_t, ns, exact, backend) * inv_sig2
-        lnL = (-0.5 * LN2PI - ln_sigma) - 0.5 * chi2
+    for tg, dr, (kc, ksc, Pc, ac, ic, ec, wc, u1c, u2c, gpc, gsc,
+                 mc) in _core_steps(
+            [k, ksec, P, a_R, inc, e, w, u1, u2, g_pri, g_sec, mask], B, N,
+            chunk, _grouped(time, exact, backend)):
+        chi2 = _chunk_chi2(time[tg], exptime, obs_dev[tg], kc, Pc, ac, ic,
+                           ec, wc, u1c, u2c, gpc, n_t, ns, exact, backend)
         if apply_veto:
-            zs, fronts = projected_z(sec_grid[:, None], 0.0, Pc[None, :],
-                                     ac[None, :], ic[None, :], ec[None, :],
-                                     wc[None, :] + math.pi)
-            big = torch.full_like(zs, 1e30)
-            z_eff = torch.min(torch.where(fronts, zs, big), dim=0).values
-            has_front = torch.any(fronts, dim=0)
-            D_eff = occult_quad_deficit(ksc, torch.clamp_max(z_eff, 1e30),
-                                        u1c, u2c)
-            secdepth = gsc * torch.where(has_front, D_eff,
-                                         torch.zeros_like(D_eff))
-            mc = mc & (secdepth < veto_depth)
-        out[i] = torch.where(mc, lnL, torch.full_like(lnL, -math.inf))
-    return out.reshape(-1)[:N]
+            secdepth = _secondary_depth(sec_grid, Pc, ac, ic, ec, wc, ksc,
+                                        u1c, u2c, gsc)
+            mc = mc & (secdepth.view(veto[tg].shape[0], -1)
+                       < veto[tg]).view(-1)
+        out[dr] = _lnL(chi2, mc, const[tg], inv[tg])
+    return _unpad(out, B, N)
 
 
 def eb_radius_ratios(radii, R_host):

@@ -16,13 +16,19 @@ Rank r sits at (r // n_draws, r % n_draws), the row-major layout of the
 JAX package's ``devs.reshape(nt, nd)``. ``mesh=None`` is this process
 alone: no collective and no process group.
 
-Each rank runs its targets one at a time through the port's samplers and
-likelihood cores (``ops/lightcurve.py``): one chi^2 kernel launch per core
-on a CUDA tensor (``orbit_chunk``), results kept on the device until one
-transfer at the end. Every (target, draw shard, scenario family) draws
-from its own ``torch.Generator``, seeded from ``SeedSequence([seed,
-d_idx, slot...])`` with the JAX package's key layout as the slots, so a
-draw shard's stream does not depend on the grid's other ranks.
+Each rank runs one program per scenario family over all of its targets,
+the counterpart of the JAX package's ``_build_family_step`` (a
+``jax.vmap`` over the targets): each target samples on its own
+generators, the targets' draw sets are concatenated, and each computed
+row runs one batched likelihood core (``ops/lightcurve.py``), on a CUDA
+tensor one chi^2 kernel launch over all the targets (up to
+``lightcurve.DRAW_CAP`` draws); the evidence parts are reduced per target
+in one (B_local, N_local) pass, and the results stay on the device until
+one transfer at the end. Every (target, draw shard, scenario family)
+draws from its own ``torch.Generator``, seeded from
+``SeedSequence([seed, d_idx, slot...])`` with the JAX package's key layout
+as the slots, so a draw shard's stream does not depend on the grid's
+other ranks or on the other targets of its batch.
 
 ``batch_fpp_tp_eb`` runs the (TP, EB, EBx2P) set; ``batch_fpp_full`` the
 15 target-star scenarios plus NTP / NEB / NEBx2P per nearby star (the
@@ -121,15 +127,22 @@ def _wire(x, mesh):
 
 
 def _local_lnZ_parts(lnL):
-    """(local max, local scaled sumexp) for a distributed logsumexp, as
-    0-d tensors."""
+    """(local max, local scaled sumexp) along the last axis, for a
+    distributed logsumexp: (B,) tensors for a (B, N) block of B targets'
+    draws, 0-d ones for a row of draws."""
     finite = torch.isfinite(lnL)
     safe = torch.where(finite, lnL, torch.full_like(lnL, -math.inf))
-    m = torch.max(safe)
+    m = torch.amax(safe, dim=-1)
     m_safe = torch.where(torch.isfinite(m), m, torch.full_like(m, -1e30))
-    s = torch.sum(torch.where(finite, torch.exp(safe - m_safe),
-                              torch.zeros_like(lnL)))
+    s = torch.sum(torch.where(finite, torch.exp(safe - m_safe[..., None]),
+                              torch.zeros_like(lnL)), dim=-1)
     return m_safe, s
+
+
+def _cat(ds, *names):
+    """Each named per-draw array of the targets' draw dicts ``ds``,
+    concatenated target-major."""
+    return [torch.cat([d[n] for d in ds]) for n in names]
 
 
 def _combine_lnZ(m, s, ln_n_total, mesh):
@@ -193,52 +206,56 @@ def batch_fpp_tp_eb(mesh, keys, times, obs_dev, sigmas, P_orbs, M_ss, R_ss,
 
     Args are per-target: keys (B,) int seeds, times (B, n_t) exposure
     centers, obs_dev (B, n_t) flux - 1, the rest (B,). ``chunk`` is for
-    the CPU route: without it a CUDA core runs one kernel launch
-    (``lightcurve._core_chunk``)."""
+    the CPU route: without it a CUDA core runs one kernel launch over the
+    rank's targets (``lightcurve._core_chunk``, ``DRAW_CAP``)."""
     keys = np.asarray(keys)
     nt, nd, t_idx, d_idx = _grid_checks(mesh, N, len(keys))
     N_local = N // nd
     B_local = len(keys) // nt
     twin_local = max(N_local // eng.TWIN_DIV, 1)
     kw = dict(exptime=exptime, n_t=n_t, ns=ns, chunk=chunk)
-    host = [np.asarray(a, F32) for a in (sigmas, P_orbs, M_ss, R_ss, Teffs,
-                                         u1s, u2s)]
-    ms, ss = [], []
-    for b in range(t_idx * B_local, (t_idx + 1) * B_local):
-        time_i = torch.as_tensor(np.asarray(times[b], F32), device=device)
-        obs_i = torch.as_tensor(np.asarray(obs_dev[b], F32), device=device)
-        sigma, P_orb, M_s, R_s, Teff, u1, u2 = (a[b] for a in host)
-        u1a = torch.full((N_local,), float(u1), device=device)
-        u2a = torch.full((N_local,), float(u2), device=device)
-        d = eng.sample_planet_target(
-            _generator(keys[b], d_idx, 0, device=device), P_orb, P_orb, M_s,
-            R_s, N=N_local, flatpriors=False)
-        lnL_tp = lnL_planet(time_i, obs_i, sigma, d["k"], d["P"], d["a_R"],
-                            d["inc_rad"], d["eccs"], d["w_rad"], u1a, u2a,
-                            torch.ones((N_local,), device=device), d["mask"],
-                            **kw)
-        e = eng.sample_teb(_generator(keys[b], d_idx, 1, device=device),
-                           P_orb, P_orb, M_s, R_s, Teff, N=N_local,
-                           twin_n=twin_local)
-        t = e["twin"]
-        lnL_eb_ = lnL_eb(time_i, obs_i, sigma, e["k"], e["ksec"], e["P"],
-                         e["a_R"], e["inc_rad"], e["eccs"], e["w_rad"],
-                         u1a, u2a, e["g_pri"], e["g_sec"], e["mask"],
-                         apply_veto=True, **kw)
-        lnL_twin = lnL_eb(time_i, obs_i, sigma, t["k"], t["ksec"],
-                          2.0 * t["P"], t["a_R"], t["inc_rad"], t["eccs"],
-                          t["w_rad"], u1a[:twin_local], u2a[:twin_local],
-                          t["g_pri"], t["g_sec"], t["mask"],
-                          apply_veto=False, **kw)
-        parts = [_local_lnZ_parts(lnL + lnw) for lnL, lnw in (
-            (lnL_tp, d["lnw"]), (lnL_eb_, e["lnw"]), (lnL_twin, t["lnw"]))]
-        ms.append(torch.stack([p[0] for p in parts]))
-        ss.append(torch.stack([p[1] for p in parts]))
+    mine = slice(t_idx * B_local, (t_idx + 1) * B_local)
+    sigma, P_orb, M_s, R_s, Teff, u1, u2 = (
+        np.asarray(a, F32)[mine] for a in (sigmas, P_orbs, M_ss, R_ss, Teffs,
+                                           u1s, u2s))
+    time = torch.as_tensor(np.asarray(times, F32)[mine], device=device)
+    obs = torch.as_tensor(np.asarray(obs_dev, F32)[mine], device=device)
+
+    def per_draw(v, n):
+        return torch.as_tensor(np.repeat(v, n), device=device)
+
+    tp, eb = [], []
+    for i, seed in enumerate(keys[mine]):
+        tp.append(eng.sample_planet_target(
+            _generator(seed, d_idx, 0, device=device), P_orb[i], P_orb[i],
+            M_s[i], R_s[i], N=N_local, flatpriors=False))
+        eb.append(eng.sample_teb(
+            _generator(seed, d_idx, 1, device=device), P_orb[i], P_orb[i],
+            M_s[i], R_s[i], Teff[i], N=N_local, twin_n=twin_local))
+    tw = [e["twin"] for e in eb]
+    lnL_tp = lnL_planet(time, obs, sigma, *_cat(tp, "k", "P", "a_R",
+                                                "inc_rad", "eccs", "w_rad"),
+                        per_draw(u1, N_local), per_draw(u2, N_local),
+                        torch.ones((B_local * N_local,), device=device),
+                        *_cat(tp, "mask"), **kw)
+    lnL_eb_ = lnL_eb(time, obs, sigma, *_cat(
+        eb, "k", "ksec", "P", "a_R", "inc_rad", "eccs", "w_rad"),
+        per_draw(u1, N_local), per_draw(u2, N_local),
+        *_cat(eb, "g_pri", "g_sec", "mask"), apply_veto=True, **kw)
+    k, ksec, P = _cat(tw, "k", "ksec", "P")
+    lnL_twin = lnL_eb(time, obs, sigma, k, ksec, 2.0 * P, *_cat(
+        tw, "a_R", "inc_rad", "eccs", "w_rad"), per_draw(u1, twin_local),
+        per_draw(u2, twin_local), *_cat(tw, "g_pri", "g_sec", "mask"),
+        apply_veto=False, **kw)
+    parts = [_local_lnZ_parts((lnL + lnw).view(B_local, -1)) for lnL, lnw in (
+        (lnL_tp, *_cat(tp, "lnw")), (lnL_eb_, *_cat(eb, "lnw")),
+        (lnL_twin, *_cat(tw, "lnw")))]
+    ms = torch.stack([p[0] for p in parts], dim=1)
+    ss = torch.stack([p[1] for p in parts], dim=1)
     ln_n = torch.tensor([math.log(N), math.log(N),
                          math.log(twin_local * nd)], dtype=torch.float32,
                         device=device)
-    lnZ = _gather_targets(_combine_lnZ(torch.stack(ms), torch.stack(ss),
-                                       ln_n, mesh), mesh)
+    lnZ = _gather_targets(_combine_lnZ(ms, ss, ln_n, mesh), mesh)
     probs = torch.exp(lnZ - torch.logsumexp(lnZ, dim=1, keepdim=True))
     out = torch.cat([1.0 - probs[:, :1], lnZ], dim=1).cpu().numpy()
     return out[:, 0], out[:, 1:]
@@ -290,8 +307,8 @@ def prepare_target_batch(targets: list[dict], mission: str = "TESS",
 
     Curves, contrast curves, LDC grids and MOLUSC rows become tensors on
     ``device``; per-target scalars stay host float32 arrays. Each target
-    keeps its own TRILEGAL table (``batch["bg"][i]``, n_comp rows): a rank
-    runs its targets one at a time, so nothing is padded. Contrast curves
+    keeps its own TRILEGAL table (``batch["bg"][i]``, n_comp rows): each
+    target's samplers run on their own, so nothing is padded. Contrast curves
     are padded to the longest by repeating the last point; MOLUSC rows to
     the longest with zeros (the true counts in ``molusc_kept``); nearby
     slots to the largest count with valid = False. The MOLUSC switch is
@@ -447,8 +464,9 @@ def batch_fpp_full(mesh, batch: dict, *, N: int, n_t: int, ns: int,
     -inf and run no likelihood core (nearby-star rows cannot be dropped,
     as in the frontend, docs/parity.md item 9); nor do invalid (padding)
     nearby slots. ``chunk`` is for the CPU route: without it a CUDA core
-    runs as one kernel launch (``lightcurve._core_chunk``), so a rank
-    makes one launch per computed row and target."""
+    runs as one kernel launch over the rank's targets
+    (``lightcurve._core_chunk``, ``DRAW_CAP``), so a rank makes one launch
+    per computed row."""
     B = len(batch["key"])
     nt, nd, t_idx, d_idx = _grid_checks(mesh, N, B)
     eff_cc_filt = cc_filt if has_cc else None
@@ -478,16 +496,11 @@ def batch_fpp_full(mesh, batch: dict, *, N: int, n_t: int, ns: int,
                cc_filt=eff_cc_filt, drop=drop_idx, d_idx=d_idx,
                kw=dict(exptime=exptime, n_t=n_t, ns=ns, chunk=chunk))
     B_local = B // nt
-    m_rows, s_rows = [], []
-    for b in range(t_idx * B_local, (t_idx + 1) * B_local):
-        m_b, s_b = _per_target(batch, b, R, cfg, device)
-        m_rows.append(m_b)
-        s_rows.append(s_b)
+    m, s = _family_step(batch, range(t_idx * B_local, (t_idx + 1) * B_local),
+                        R, cfg, torch.device(device))
     ln_n = torch.tensor([math.log(n) for n in n_total], dtype=torch.float32,
                         device=device)
-    lnZv = _gather_targets(
-        _combine_lnZ(torch.stack(m_rows), torch.stack(s_rows), ln_n, mesh),
-        mesh)
+    lnZv = _gather_targets(_combine_lnZ(m, s, ln_n, mesh), mesh)
     fpp, nfpp, lnZv = _combine_rows(lnZv)
     out = torch.cat([fpp[:, None], nfpp[:, None], lnZv], dim=1).cpu().numpy()
     return out[:, 0], out[:, 1], out[:, 2:]
@@ -506,154 +519,194 @@ def _combine_rows(lnZv):
     return fpp, nfpp, lnZv
 
 
-def _per_target(batch, b, R, cfg, device):
-    """Target b's (R,) local (max, scaled sum) evidence parts on this draw
-    shard: every scenario family with a kept row, then each valid nearby
-    slot (the JAX package's ``_build_family_step`` programs, one target at
-    a time). Rows not computed keep (-1e30, 0), which read -inf."""
+def _target_inputs(batch, b, cfg, dev):
+    """Target b's sampler inputs on this draw shard, the fields the JAX
+    package's ``per_target`` reads from its batch row; its MOLUSC mass
+    ratios qs0 come from its own generator."""
     N, N_local = cfg["N"], cfg["N_local"]
-    drop, kw, d_idx = cfg["drop"], cfg["kw"], cfg["d_idx"]
     seed = batch["key"][b]
-    dev = torch.device(device)
-    time_i = batch["time"][b].to(dev)
-    obs_i = batch["obs_dev"][b].to(dev)
-    sigma = batch["sigma"][b]
-    P_orb, M_s, R_s = batch["P_orb"][b], batch["M_s"][b], batch["R_s"][b]
-    Teff, plx = batch["Teff"][b], batch["plx"][b]
-    seps, cons = batch["seps"][b].to(dev), batch["cons"][b].to(dev)
-    bg = {"pack": batch["bg"][b]["pack"].to(dev)}
-    u1a = torch.full((N_local,), float(batch["u1"][b]), device=dev)
-    u2a = torch.full((N_local,), float(batch["u2"][b]), device=dev)
-    ones = torch.ones((N_local,), device=dev)
-    use_molusc = "molusc_qs" in batch
-    if use_molusc:
+    if "molusc_qs" in batch:
         # per-draw companion mass ratios from the MOLUSC posterior with the
         # reference's zero-padding semantics: P(zero) = 1 - kept / N
         # (ml.py:455-464 pads the kept rows to N)
         qs = batch["molusc_qs"][b].to(dev)
-        r = eng._randint(_generator(seed, d_idx, _MOLUSC_SLOT, device=dev),
-                         N_local, N)
+        r = eng._randint(_generator(seed, cfg["d_idx"], _MOLUSC_SLOT,
+                                    device=dev), N_local, N)
         qs0 = torch.where(r < int(batch["molusc_kept"][b]),
                           qs[torch.clamp(r, 0, qs.shape[0] - 1)],
                           torch.zeros((), device=dev))
     else:
         qs0 = torch.zeros((N_local,), device=dev)
-    parts = {}
+    return dict(
+        seed=seed, P_orb=batch["P_orb"][b], M_s=batch["M_s"][b],
+        R_s=batch["R_s"][b], Teff=batch["Teff"][b], plx=batch["plx"][b],
+        seps=batch["seps"][b].to(dev), cons=batch["cons"][b].to(dev),
+        bg={"pack": batch["bg"][b]["pack"].to(dev)}, qs0=qs0,
+        u1=torch.full((N_local,), float(batch["u1"][b]), device=dev),
+        u2=torch.full((N_local,), float(batch["u2"][b]), device=dev))
 
-    def ev(row, lnL, lnw):
-        parts[row] = _local_lnZ_parts(lnL + lnw)
 
-    def planet(row, d, u1x, u2x, g, lnprior, obs=obs_i, sig=sigma):
-        if row in drop:
-            return
-        lnL = lnL_planet(time_i, obs, sig, d["k"], d["P"], d["a_R"],
-                         d["inc_rad"], d["eccs"], d["w_rad"], u1x, u2x, g,
-                         d["mask"], **kw)
-        ev(row, lnL, lnprior + d["lnw"])
-
-    def eb_pair(row, d, u1x, u2x, lnprior, obs=obs_i, sig=sigma):
-        # row: the normal branch; row + 1: the twin on its own conditioned
-        # draw set, whose global denominator is n_twin * nd
-        if row not in drop:
-            lnL = lnL_eb(time_i, obs, sig, d["k"], d["ksec"], d["P"],
-                         d["a_R"], d["inc_rad"], d["eccs"], d["w_rad"], u1x,
-                         u2x, d["g_pri"], d["g_sec"], d["mask"],
-                         apply_veto=True, **kw)
-            ev(row, lnL, lnprior + d["lnw"])
-        if row + 1 not in drop:
-            t = d["twin"]
-            n = t["P"].shape[0]
-            lnL_t = lnL_eb(time_i, obs, sig, t["k"], t["ksec"], 2.0 * t["P"],
-                           t["a_R"], t["inc_rad"], t["eccs"], t["w_rad"],
-                           t.get("u1s", u1x[:n]), t.get("u2s", u2x[:n]),
-                           t["g_pri"], t["g_sec"], t["mask"],
-                           apply_veto=False, **kw)
-            ev(row + 1, lnL_t, t["lnprior"] + t["lnw"])
-
-    comp = dict(N=N_local, use_molusc=use_molusc, cc_filt=cfg["cc_filt"])
+def _sample(fam, x, batch, b, cfg, dev):
+    """Target b's draws of a target-star family, from its inputs x: (d, u1,
+    u2, g, lnprior), the arrays its core reads besides d's (g is None for
+    an EB family, whose dilutions are in d)."""
+    P_orb, M_s, R_s, Teff = x["P_orb"], x["M_s"], x["R_s"], x["Teff"]
+    plx, qs0, seps, cons = x["plx"], x["qs0"], x["seps"], x["cons"]
+    u1a, u2a = x["u1"], x["u2"]
+    N_local = cfg["N_local"]
+    gen = _generator(x["seed"], cfg["d_idx"], *_FAMILY_SLOTS[fam], device=dev)
+    comp = dict(N=N_local, use_molusc="molusc_qs" in batch,
+                cc_filt=cfg["cc_filt"])
     bgkw = dict(N=N_local, has_cc=cfg["has_cc"])
     fp = dict(flatpriors=cfg["flatpriors"])
     twin = dict(twin_n=cfg["twin_local"])
+    if fam == "TP":
+        # TP (reference triceratops.py:797)
+        d = eng.sample_planet_target(gen, P_orb, P_orb, M_s, R_s, N=N_local,
+                                     **fp)
+        return d, u1a, u2a, torch.ones_like(u1a), 0.0
+    if fam == "EB":
+        # EB, EBx2P (:843)
+        d = eng.sample_teb(gen, P_orb, P_orb, M_s, R_s, Teff, N=N_local,
+                           **twin)
+        return d, u1a, u2a, None, 0.0
+    if fam == "PTP":
+        # PTP (:904)
+        d = eng.sample_ptp(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0, seps,
+                           cons, **comp, **fp)
+        return d, u1a, u2a, d["g"], d["lnprior"]
+    if fam == "PEB":
+        # PEB, PEBx2P (:953)
+        d = eng.sample_peb(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0, seps,
+                           cons, **comp, **twin)
+        return d, u1a, u2a, None, d["lnprior"]
+    if fam == "STP":
+        # STP (:1017)
+        d = eng.sample_stp(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0,
+                           batch["u1_tab10"][b].to(dev),
+                           batch["u2_tab10"][b].to(dev), seps, cons, **comp,
+                           **fp)
+        return d, d["u1s"], d["u2s"], d["g"], d["lnprior"]
+    if fam == "SEB":
+        # SEB, SEBx2P (:1066)
+        d = eng.sample_seb(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0,
+                           batch["u1_tab13"][b].to(dev),
+                           batch["u2_tab13"][b].to(dev), seps, cons, **comp,
+                           twin_n=cfg["twin_seb"])
+        return d, d["u1s"], d["u2s"], None, d["lnprior"]
+    on_bg = fam in ("BTP", "BEB")
+    if fam in ("DTP", "BTP"):
+        # DTP (:1130), BTP (:1242)
+        d = eng.sample_background_planet(gen, P_orb, P_orb, M_s, R_s,
+                                         x["bg"], seps, cons,
+                                         host_is_bg=on_bg, **bgkw, **fp)
+        return (d, d["u1s"] if on_bg else u1a, d["u2s"] if on_bg else u2a,
+                d["g"], d["lnprior"])
+    # DEB, DEBx2P (:1178); BEB, BEBx2P (:1291)
+    d = eng.sample_background_eb(gen, P_orb, P_orb, M_s, R_s, Teff, x["bg"],
+                                 seps, cons, host_is_bg=on_bg,
+                                 cc_filt=cfg["cc_filt"] or "TESS", **bgkw,
+                                 **twin)
+    return (d, d["u1s"] if on_bg else u1a, d["u2s"] if on_bg else u2a, None,
+            d["lnprior"])
+
+
+def _family_step(batch, targets, R, cfg, dev):
+    """The rank's (B_local, R) local (max, scaled sum) evidence parts on this
+    draw shard, for its contiguous ``targets``: per scenario family with a
+    kept row, every target samples on its own generators, then each row
+    runs one likelihood core over the targets' concatenated draws (the JAX
+    package's ``_build_family_step``, a vmap over the targets); then per
+    nearby slot NTP, NEB and NEBx2P over the targets where the slot is
+    valid. Rows not computed keep (-1e30, 0), which read -inf."""
+    drop, kw = cfg["drop"], cfg["kw"]
+    N_local, d_idx = cfg["N_local"], cfg["d_idx"]
+    mine = slice(targets.start, targets.stop)
+    time = batch["time"][mine].to(dev)
+    obs = batch["obs_dev"][mine].to(dev)
+    sigma = batch["sigma"][mine]
+    every = list(range(len(targets)))
+    xs = [_target_inputs(batch, b, cfg, dev) for b in targets]
+    m = torch.full((len(targets), R), -1e30, device=dev)
+    s = torch.zeros((len(targets), R), device=dev)
+
+    def ev(row, rows, lnL, lnw):
+        m[rows, row], s[rows, row] = _local_lnZ_parts(
+            (lnL + lnw).view(len(rows), -1))
+
+    def joined(draws, i):
+        return torch.cat([t[i] for t in draws])
+
+    def planet(row, draws, rows, obs_r, sig_r):
+        if row in drop:
+            return
+        ds = [t[0] for t in draws]
+        lnL = lnL_planet(time[rows], obs_r, sig_r, *_cat(
+            ds, "k", "P", "a_R", "inc_rad", "eccs", "w_rad"), joined(draws, 1),
+            joined(draws, 2), joined(draws, 3), *_cat(ds, "mask"), **kw)
+        ev(row, rows, lnL, torch.cat([t[4] + t[0]["lnw"] for t in draws]))
+
+    def eb_pair(row, draws, rows, obs_r, sig_r):
+        # row: the normal branch; row + 1: the twin on its own conditioned
+        # draw set (one size for every target), whose global denominator
+        # is n_twin * nd
+        ds = [t[0] for t in draws]
+        if row not in drop:
+            lnL = lnL_eb(time[rows], obs_r, sig_r, *_cat(
+                ds, "k", "ksec", "P", "a_R", "inc_rad", "eccs", "w_rad"),
+                joined(draws, 1), joined(draws, 2),
+                *_cat(ds, "g_pri", "g_sec", "mask"), apply_veto=True, **kw)
+            ev(row, rows, lnL, torch.cat([t[4] + t[0]["lnw"]
+                                          for t in draws]))
+        if row + 1 not in drop:
+            tws = [d["twin"] for d in ds]
+            n = tws[0]["P"].shape[0]
+            u1t, u2t = (torch.cat([tw.get(f"u{j}s", t[j][:n])
+                                   for tw, t in zip(tws, draws)])
+                        for j in (1, 2))
+            k, ksec, P = _cat(tws, "k", "ksec", "P")
+            lnL_t = lnL_eb(time[rows], obs_r, sig_r, k, ksec, 2.0 * P,
+                           *_cat(tws, "a_R", "inc_rad", "eccs", "w_rad"),
+                           u1t, u2t, *_cat(tws, "g_pri", "g_sec", "mask"),
+                           apply_veto=False, **kw)
+            ev(row + 1, rows, lnL_t,
+               torch.cat([tw["lnprior"] + tw["lnw"] for tw in tws]))
+
     for fam, idxs in _FAMILY_ROWS:
         if set(idxs) <= drop:
             continue
-        gen = _generator(seed, d_idx, *_FAMILY_SLOTS[fam], device=dev)
-        if fam == "TP":
-            # TP (reference triceratops.py:797)
-            d = eng.sample_planet_target(gen, P_orb, P_orb, M_s, R_s,
-                                         N=N_local, **fp)
-            planet(0, d, u1a, u2a, ones, 0.0)
-        elif fam == "EB":
-            # EB, EBx2P (:843)
-            d = eng.sample_teb(gen, P_orb, P_orb, M_s, R_s, Teff, N=N_local,
-                               **twin)
-            eb_pair(1, d, u1a, u2a, 0.0)
-        elif fam == "PTP":
-            # PTP (:904)
-            d = eng.sample_ptp(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0,
-                               seps, cons, **comp, **fp)
-            planet(3, d, u1a, u2a, d["g"], d["lnprior"])
-        elif fam == "PEB":
-            # PEB, PEBx2P (:953)
-            d = eng.sample_peb(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0,
-                               seps, cons, **comp, **twin)
-            eb_pair(4, d, u1a, u2a, d["lnprior"])
-        elif fam == "STP":
-            # STP (:1017)
-            d = eng.sample_stp(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0,
-                               batch["u1_tab10"][b].to(dev),
-                               batch["u2_tab10"][b].to(dev), seps, cons,
-                               **comp, **fp)
-            planet(6, d, d["u1s"], d["u2s"], d["g"], d["lnprior"])
-        elif fam == "SEB":
-            # SEB, SEBx2P (:1066)
-            d = eng.sample_seb(gen, P_orb, P_orb, M_s, R_s, Teff, plx, qs0,
-                               batch["u1_tab13"][b].to(dev),
-                               batch["u2_tab13"][b].to(dev), seps, cons,
-                               **comp, twin_n=cfg["twin_seb"])
-            eb_pair(7, d, d["u1s"], d["u2s"], d["lnprior"])
-        elif fam in ("DTP", "BTP"):
-            # DTP (:1130), BTP (:1242)
-            on_bg = fam == "BTP"
-            d = eng.sample_background_planet(gen, P_orb, P_orb, M_s, R_s, bg,
-                                             seps, cons, host_is_bg=on_bg,
-                                             **bgkw, **fp)
-            planet(idxs[0], d, d["u1s"] if on_bg else u1a,
-                   d["u2s"] if on_bg else u2a, d["g"], d["lnprior"])
-        else:
-            # DEB, DEBx2P (:1178); BEB, BEBx2P (:1291)
-            on_bg = fam == "BEB"
-            d = eng.sample_background_eb(
-                gen, P_orb, P_orb, M_s, R_s, Teff, bg, seps, cons,
-                host_is_bg=on_bg, cc_filt=cfg["cc_filt"] or "TESS", **bgkw,
-                **twin)
-            eb_pair(idxs[0], d, d["u1s"] if on_bg else u1a,
-                    d["u2s"] if on_bg else u2a, d["lnprior"])
+        draws = [_sample(fam, x, batch, b, cfg, dev)
+                 for b, x in zip(targets, xs)]
+        (planet if len(idxs) == 1 else eb_pair)(idxs[0], draws, every, obs,
+                                                sigma)
 
-    # nearby-star rows: NTP and NEB / NEBx2P per valid slot, on the curve
-    # renormalized for that star's share of the aperture (renorm_flux,
-    # reference funcs.py:164-177; scenario reuse triceratops.py:1344-1428)
+    # nearby-star rows: NTP and NEB / NEBx2P per slot over the targets where
+    # it is valid, on the curve renormalized for that star's share of the
+    # aperture (renorm_flux, reference funcs.py:164-177; scenario reuse
+    # triceratops.py:1344-1428)
     nearby = batch.get("nearby")
     for kk in range(nearby["valid"].shape[1] if nearby is not None else 0):
-        if not nearby["valid"][b, kk]:
+        rows = [i for i, b in enumerate(targets) if nearby["valid"][b, kk]]
+        if not rows:
             continue
-        fr = nearby["fluxratio"][b, kk]
-        obs_k = obs_i / float(fr)
-        sig_k = sigma / fr
-        nM, nR, nT = (nearby[f][b, kk] for f in ("M_s", "R_s", "Teff"))
-        nu1 = torch.full((N_local,), float(nearby["u1"][b, kk]), device=dev)
-        nu2 = torch.full((N_local,), float(nearby["u2"][b, kk]), device=dev)
+        gb = [targets[i] for i in rows]
+        fr = nearby["fluxratio"][gb, kk]
+        obs_k = obs[rows] / torch.as_tensor(fr[:, None], device=dev)
         slot = _NEARBY_SLOT + kk
-        d = eng.sample_planet_target(
-            _generator(seed, d_idx, slot, 0, device=dev), P_orb, P_orb, nM,
-            nR, N=N_local, **fp)
-        planet(15 + 3 * kk, d, nu1, nu2, ones, 0.0, obs=obs_k, sig=sig_k)
-        d = eng.sample_teb(_generator(seed, d_idx, slot, 1, device=dev),
-                           P_orb, P_orb, nM, nR, nT, N=N_local, **twin)
-        eb_pair(16 + 3 * kk, d, nu1, nu2, 0.0, obs=obs_k, sig=sig_k)
-
-    neg = torch.full((), -1e30, device=dev)
-    zero = torch.zeros((), device=dev)
-    m = torch.stack([parts[r][0] if r in parts else neg for r in range(R)])
-    s = torch.stack([parts[r][1] if r in parts else zero for r in range(R)])
+        tp, eb = [], []
+        for i, b in zip(rows, gb):
+            nM, nR, nT = (nearby[f][b, kk] for f in ("M_s", "R_s", "Teff"))
+            nu1, nu2 = (torch.full((N_local,), float(nearby[f][b, kk]),
+                                   device=dev) for f in ("u1", "u2"))
+            seed, P_orb = xs[i]["seed"], xs[i]["P_orb"]
+            d = eng.sample_planet_target(
+                _generator(seed, d_idx, slot, 0, device=dev), P_orb, P_orb,
+                nM, nR, N=N_local, flatpriors=cfg["flatpriors"])
+            tp.append((d, nu1, nu2, torch.ones_like(nu1), 0.0))
+            d = eng.sample_teb(_generator(seed, d_idx, slot, 1, device=dev),
+                               P_orb, P_orb, nM, nR, nT, N=N_local,
+                               twin_n=cfg["twin_local"])
+            eb.append((d, nu1, nu2, None, 0.0))
+        planet(15 + 3 * kk, tp, rows, obs_k, sigma[rows] / fr)
+        eb_pair(16 + 3 * kk, eb, rows, obs_k, sigma[rows] / fr)
     return m, s
