@@ -4,34 +4,45 @@ Drives the port's main path once at full size and checks it:
 
   1. requires CUDA and prints the card's name and power limit;
   2. builds the chi^2 kernels (v2 and v3 schedules, each over z^2 planes
-     and over the orbit; one source) from csrc/ with nvcc and prints the
-     build time; then, with torch.set_float32_matmul_precision("high"),
-     computes the tabulated deficit coefficients of 1e5 seeded draws
-     across all eight k-segments on the card and holds them to the CPU
-     path within 3e-6 (the coefficient products run in IEEE float32
-     whatever the caller's setting), checks the setting came back, and
-     that with the guard lifted the same call misses 3e-6;
-  3. compares each of the four kernels with its plain torch version on the
+     and over the orbit, and the v2 orbit instance that computes its
+     deficit coefficients itself; one source) from csrc/ with nvcc and
+     prints the build time and the compiler's register report; then, with
+     torch.set_float32_matmul_precision("high"), computes the tabulated
+     deficit coefficients of 1e5 seeded draws across all eight k-segments
+     on the card and holds them to the CPU path within 3e-6 (the
+     coefficient products run in IEEE float32 whatever the caller's
+     setting), checks the setting came back, and that with the guard
+     lifted the same call misses 3e-6; and holds the tab kernel's own
+     coefficient function (chi2_core.deficit_coeffs_tab) on the same draws
+     to the CPU path within 3e-6;
+  3. compares each of the five kernels with its plain torch version on the
      card at the main path's shape (n_t = 100, GL-4), at long-curve shapes
      (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times them
      with CUDA events: the plane kernels at the old n_t-bound draw chunk,
      the orbit kernels at the main path's chunk (lightcurve.orbit_chunk)
-     beside their yardstick, exposure_z2_poly plus the plane kernel on the
-     same draws (on the long curves both at the old chunk, where the
-     planes fit); then both orbit kernels with a target axis, one launch
-     over 8 targets x 1000192 draws (n_t = 100, GL-4, each target its own
-     curve), against the plain version per target, draw for draw against
-     one launch per target, and timed beside 8x the one-target launch and
-     the summed bound;
+     beside their yardstick, for orbit v2 / v3 exposure_z2_poly plus the
+     plane kernel on the same draws (on the long curves both at the old
+     chunk, where the planes fit), for the tab kernel the torch
+     coefficient stage plus orbit v2, whose result it is also gated
+     against; prints the tab kernel's registers, local memory and
+     resident warps per SM; then the three orbit kernels with a target
+     axis, one launch over 8 targets x 1000192 draws (n_t = 100, GL-4,
+     each target its own curve), against the plain version per target,
+     draw for draw against one launch per target, and timed beside 8x the
+     one-target launch and the summed bound;
   4. runs target.from_stars -> calc_depths -> calc_probs(N = 1e6,
      nsamples = 20) on bench.py's configuration (a TOI-465-like target, a
      3000-star synthetic TRILEGAL field) plus two nearby stars: all 21
-     rows, v2 schedule; checks the result and that only the v2 orbit
-     kernel launched;
+     rows, v2 schedule; checks the result and that only the tab kernel
+     launched (no torch coefficient stage);
   5. reruns the same seed on the plain torch path and compares per-row
-     lnZ; then reruns it on the kernel path under TF32
-     (set_float32_matmul_precision("high")): per-row lnZ within 1e-2 of 4,
-     and prints the same run's distance with the products' guard lifted;
+     lnZ; then under TRICERATOPS_COEFFS=exact (fastcore.COEFFS_BACKEND),
+     the torch exact coefficient stage into orbit v2: only orbit v2
+     launched, per-row lnZ within 1e-2 of the plain path on the same
+     coefficients (and the distance to 4 printed); then reruns it on the
+     kernel path under TF32 (set_float32_matmul_precision("high")): per-row lnZ
+     within 1e-2 of 4, and prints the same run's distance with the
+     products' guard lifted;
   v3. reruns the same seed under the v3 schedule: only the v3 orbit kernel
      launched, per-row lnZ as in 4; then one warm v3 call;
   6. times three warm calc_probs calls with different seeds (v2);
@@ -40,8 +51,8 @@ Drives the port's main path once at full size and checks it:
      lnZ_NTP_evolved and lnZ_NEB_evolved at R_s = 2.0) at N = 1e6 on v2,
      on the plain path and under v3, and the empty-population case; checks
      per-row lnZ across the paths and that only the schedule's orbit
-     kernel launched;
-  8. runs calc_probs_ensemble(n_runs = 3) of the 21-row call: 63 orbit
+     kernel (tab on v2) launched;
+  8. runs calc_probs_ensemble(n_runs = 3) of the 21-row call: 63 tab
      launches, FPP the mean of the runs;
   9. runs likelihoods.simulate_TP_transit_p and lnL_EB_p over 1e5
      parameter rows on the card (float64) against the same call on the
@@ -51,7 +62,7 @@ Drives the port's main path once at full size and checks it:
      and seven one-star targets on curves synthesized from seeded (Rp, P)
      rows, 1.5-6 Re and 1-10 d (tools/catalog_replay._synth_lc): (i) in
      this process alone, cold and warm, checking the rows, that only the
-     v2 orbit kernel launched, exactly once per computed row over the
+     tab kernel launched, exactly once per computed row over the
      batch (21: one program per row over all targets), its peak device
      memory (at most 20 GiB), per-row lnZ against the same targets run one
      at a time (B = 1 batches, the same seeds) within 1e-3 nats, and
@@ -66,7 +77,7 @@ Drives the port's main path once at full size and checks it:
      F1's TP and DTP rows against the JAX package's 100-key row record
      (parity/jax_rows.json).
 
-Prints a JSON line with the four kernels' numbers, then as its last line
+Prints a JSON line with the five kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
 CUDA card, and outside a checkout of the repository.
 
@@ -108,6 +119,13 @@ FLOPS_POINT = 6
 FLOPS_KEPLER = 91
 FLOPS_ORBIT_POINT = {True: FLOPS_KEPLER + 24, False: FLOPS_KEPLER + 73}
 FLOPS_ORBIT_DRAW = 38
+# The tab kernel's coefficient stage per draw (tab_coeffs), one operation
+# per + - * / and per log or sqrt: per Chebyshev term in kappa the 162
+# basis FMAs (2 each) and the recurrence step (2); per draw the 54 outputs'
+# weighted sums (one product and two FMAs, 5 each), the weights 10, the
+# kappa map 6 and _segments 14
+FLOPS_TAB_TERM = 2 * 162 + 2
+FLOPS_TAB_DRAW = 54 * 5 + 10 + 6 + 14
 # device sleep queued before each timed call (~1 ms at the H100's clock)
 LEAD_CYCLES = 2_000_000
 # phase 7: the nearby star whose lookalikes the unknown-host rows draw, and
@@ -117,7 +135,8 @@ R_EVOLVED = 2.0
 # phase 9: parameter rows of the batch likelihoods, rows checked on the CPU
 N_LIKELIHOOD_ROWS = 100_000
 N_LIKELIHOOD_CHECK = 256
-COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3")
+COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
+            "launches_orbit_tab", "launches_coeffs_tab")
 # phase 10: targets in the batch, the seed of their (Rp, P) rows and the
 # ranges they are drawn from [Re], [d]. At sigma = 4e-4 a planet of ~10 Re
 # or more makes the companion and background rows needles whose lnZ
@@ -182,8 +201,8 @@ def phase_build(chi2_core):
     so = chi2_core.build(verbose=True)
     dt = time.perf_counter() - t0
     print(f"phase 2: built {so.name} (chi2_supersampled, "
-          f"chi2_supersampled_v3, chi2_from_orbit, chi2_from_orbit_v3) in "
-          f"{dt:.2f} s")
+          f"chi2_supersampled_v3, chi2_from_orbit, chi2_from_orbit_v3, "
+          f"chi2_from_orbit_tab) in {dt:.2f} s")
     return dt
 
 
@@ -234,14 +253,32 @@ def phase_tf32_coeffs(torch):
     check(e_unguarded > TAB_TOL,
           f"with the guard lifted the coefficients differ by only "
           f"{e_unguarded}: TF32 did not engage, so the check saw nothing")
-    return e
+
+    from triceratops_tpu_torch.ops import chi2_core
+
+    got = chi2_core.deficit_coeffs_tab(*(a.cuda() for a in cpu))
+    torch.cuda.synchronize()
+    e_kernel = max(float((g.cpu() - w).abs().max())
+                   for g, w in zip(got, want))
+    bounds = np.arange(0, k.size + 1, N_TF32_DRAWS // 8)
+    seg_err = [max(float((g.cpu()[a:b] - w[a:b]).abs().max())
+                   for g, w in zip(got, want))
+               for a, b in zip(bounds[:-1], bounds[1:])]
+    print(f"phase 2: the tab kernel's own coefficient function "
+          f"(deficit_coeffs_tab_launch) on the same {k.size} draws vs the "
+          f"CPU: max |d| {e_kernel:.3g} (gate {TAB_TOL}); per k-segment "
+          + ", ".join(f"{x:.3g}" for x in seg_err))
+    check(e_kernel < TAB_TOL,
+          f"the in-kernel tab coefficients differ by {e_kernel}")
+    return e, e_kernel
 
 
 def _draws(torch, C, n_t, ns, window, seed):
     """One chunk of seeded draws (those of tests/test_pallas_core.py):
     the orbit (time, P, aR, inc, e, w), the rest of the kernels' inputs
-    (cA, cB1, cB2, seg, g, obs_dev) from the port's coefficient stage, and
-    the exposure nodes."""
+    (cA, cB1, cB2, seg, g, obs_dev) from the port's coefficient stage, the
+    exposure nodes, and the tab kernel's per-draw inputs (k, u1, u2, g)
+    with g (C,)."""
     from triceratops_tpu_torch.ops import lightcurve as lc
     from triceratops_tpu_torch.ops.fastcore import deficit_coeffs
 
@@ -268,13 +305,13 @@ def _draws(torch, C, n_t, ns, window, seed):
     rest = (cA.contiguous(), cB1.contiguous(), cB2.contiguous(),
             torch.stack(segs, 1).contiguous(), g, obs)
     return ((t, P, aR, inc, e, w), rest, tuple(map(float, offs)),
-            tuple(map(float, wgts)))
+            tuple(map(float, wgts)), (k, u1, u2, g.view(-1)))
 
 
 def _chunk_inputs(torch, chi2_core, C, n_t, ns, window, seed):
     """One chunk of (q0 ... obs_dev) for chi2_supersampled: the planes of
     the seeded draws' exposure z^2 model (chi2_core.orbit_planes)."""
-    orbit, rest, offs, wgts = _draws(torch, C, n_t, ns, window, seed)
+    orbit, rest, offs, wgts, _ = _draws(torch, C, n_t, ns, window, seed)
     return (*chi2_core.orbit_planes(*orbit, ns), *rest), offs, wgts
 
 
@@ -335,17 +372,14 @@ def chi2_bound(torch, args, offs):
                                            n_t)), n_active / (C * n_t))
 
 
-def orbit_bound(torch, chi2_core, orbit, rest, offs, ns):
-    """(bound_ms, bound_by, active share) of chi2_from_orbit on these
-    inputs. Bytes: time, obs, the six per-draw parameters (P, aR, inc, e,
-    w, g) and 59 coefficients read once, the output written once.
-    Operations: the orbit source's work at every point and draw
+def _orbit_flops(torch, chi2_core, orbit, rest, offs, ns):
+    """(FP32 operations, active share) of the orbit kernels on these
+    inputs: the orbit source's work at every point and draw
     (FLOPS_ORBIT_POINT, FLOPS_ORBIT_DRAW) plus the plane kernels' work on
     the same z^2 model, counted on planes made a draw slice at a time."""
     t, P, aR, inc, e, w = orbit
     seg = rest[3]
     C, n_t = P.shape[0], t.shape[0]
-    nbytes = 4 * (sum(a.numel() for a in (*orbit, *rest)) + C)
     step = max(256, (1 << 24) // n_t)
     n_active = 0
     for i in range(0, C, step):
@@ -355,7 +389,39 @@ def orbit_bound(torch, chi2_core, orbit, rest, offs, ns):
         n_active += _active_points(torch, *planes, seg[s], offs)
     flops = (C * n_t * FLOPS_ORBIT_POINT[ns == 1] + C * FLOPS_ORBIT_DRAW
              + _deficit_flops(n_active, C * n_t, len(offs), n_t))
-    return (*_bound(nbytes, flops), n_active / (C * n_t))
+    return flops, n_active / (C * n_t)
+
+
+def orbit_bound(torch, chi2_core, orbit, rest, offs, ns):
+    """(bound_ms, bound_by, active share) of chi2_from_orbit on these
+    inputs. Bytes: time, obs, the six per-draw parameters (P, aR, inc, e,
+    w, g) and 59 coefficients read once, the output written once.
+    Operations: _orbit_flops."""
+    nbytes = 4 * (sum(a.numel() for a in (*orbit, *rest)) + orbit[1].numel())
+    flops, share = _orbit_flops(torch, chi2_core, orbit, rest, offs, ns)
+    return (*_bound(nbytes, flops), share)
+
+
+def tab_bound(torch, chi2_core, orbit, rest, kud, offs, ns):
+    """(bound_ms, bound_by, active share) of chi2_from_orbit_tab on these
+    inputs. Bytes: time, obs, the nine per-draw inputs (P, aR, inc, e, w,
+    k, u1, u2, g) read once, the coefficient table once, the output
+    written once. Operations: _orbit_flops plus each draw's coefficient
+    stage at its own k-segment's degree (FLOPS_TAB_TERM per term,
+    FLOPS_TAB_DRAW)."""
+    from triceratops_tpu_torch.ops import fastcore
+
+    t, obs = orbit[0], rest[5]
+    tab = chi2_core._device_table(t.device)
+    nbytes = 4 * (t.numel() + obs.numel() + 10 * orbit[1].numel()
+                  + tab.numel())
+    br = np.asarray(fastcore._TAB_BREAKS, np.float32)
+    kc = np.clip(kud[0].cpu().numpy(), br[0], br[-1])
+    seg = np.clip(np.searchsorted(br, kc, side="right") - 1, 0, 7)
+    deg = np.asarray(fastcore._TAB_DEGS)[seg]
+    flops, share = _orbit_flops(torch, chi2_core, orbit, rest, offs, ns)
+    flops += int(deg.sum()) * FLOPS_TAB_TERM + kc.size * FLOPS_TAB_DRAW
+    return (*_bound(nbytes, flops), share)
 
 
 def _gate(torch, name, kern, plain, C):
@@ -460,19 +526,21 @@ def phase_kernel(torch, chi2_core):
 
 def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
                  C_main):
-    """Both orbit kernels at one shape: the gates against the plain version
-    and the yardstick at C_cmp draws, the time and bound at C_main."""
-    orbit, rest, offs, wgts = _draws(torch, C_cmp, n_t, ns, window, seed)
+    """The three orbit kernels at one shape: the gates against the plain
+    version and the yardstick at C_cmp draws, the time and bound at
+    C_main."""
+    orbit, rest, offs, wgts, kud = _draws(torch, C_cmp, n_t, ns, window,
+                                          seed)
     kw = dict(offs=offs, wgts=wgts, ns=ns)
     plain = chi2_core.chi2_from_orbit_plain(*orbit, *rest, **kw)
     plain_ms = _median_ms(torch, lambda: chi2_core.chi2_from_orbit_plain(
         *orbit, *rest, **kw), reps=5)
     if C_main != C_cmp:
-        main = _draws(torch, C_main, n_t, ns, window, seed)[:2]
+        main = _draws(torch, C_main, n_t, ns, window, seed)
     else:
-        main = orbit, rest
-    bound_ms, bound_by, share = orbit_bound(torch, chi2_core, *main, offs,
-                                            ns)
+        main = orbit, rest, offs, wgts, kud
+    bound_ms, bound_by, share = orbit_bound(torch, chi2_core, *main[:2],
+                                            offs, ns)
     row = {}
     for kname, plane_fn in (("chi2_from_orbit", chi2_core.chi2_supersampled),
                             ("chi2_from_orbit_v3",
@@ -497,7 +565,69 @@ def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
                           bound_ms=bound_ms, bound_by=bound_by,
                           yardstick_ms=yard_ms, cmp_ms=cmp_ms, C=C_main,
                           C_cmp=C_cmp)
+    row["chi2_from_orbit_tab"] = _tab_shape(torch, chi2_core, name, ns,
+                                            (orbit, rest, kud), main, kw)
     return row
+
+
+def _tab_shape(torch, chi2_core, name, ns, cmp, main, kw):
+    """The tab kernel at one shape: on the comparison draws (cmp: orbit,
+    rest, kud of _draws) the gates against its plain version and against
+    its yardstick's result, the torch tab coefficient stage fed to orbit
+    v2 (the main path before the tab kernel), and both times; on the main
+    path's draws (main, _draws' tuple) the time, the yardstick's time and
+    the bound; and the compiler's and occupancy calculator's view of its
+    instance."""
+    from triceratops_tpu_torch.ops import fastcore
+
+    def tab_args(orbit, rest, kud):
+        return (*orbit, *kud, rest[5])
+
+    def yardstick(orbit, rest, kud):
+        k, u1, u2, g = kud
+        cA, cB1, cB2, *segs = fastcore.cheb_deficit_coeffs_tab(k, u1, u2)
+        return chi2_core.chi2_from_orbit(
+            *orbit, cA.contiguous(), cB1.contiguous(), cB2.contiguous(),
+            torch.stack(segs, 1), g[:, None], rest[5], **kw)
+
+    fn = chi2_core.chi2_from_orbit_tab
+    args = tab_args(*cmp)
+    C_cmp, C_main = cmp[0][1].shape[0], main[0][1].shape[0]
+    n_t = cmp[0][0].shape[0]
+    plain = chi2_core.chi2_from_orbit_tab_plain(*args, **kw)
+    plain_ms = _median_ms(torch, lambda: chi2_core.chi2_from_orbit_tab_plain(
+        *args, **kw), reps=5)
+    kern = fn(*args, **kw)
+    yard = yardstick(*cmp)
+    torch.cuda.synchronize()
+    p99, dmax, dz = _gate(torch, f"{name} chi2_from_orbit_tab", kern, plain,
+                          C_cmp)
+    yp99, ydmax, ydz = _gate(torch, f"{name} chi2_from_orbit_tab vs "
+                             "yardstick", kern, yard, C_cmp)
+    cmp_ms = _median_ms(torch, lambda: fn(*args, **kw))
+    main_args = tab_args(main[0], main[1], main[4])
+    ms = (cmp_ms if C_main == C_cmp
+          else _median_ms(torch, lambda: fn(*main_args, **kw)))
+    yard_ms = _median_ms(torch, lambda: yardstick(main[0], main[1], main[4]))
+    bound_ms, bound_by, share = tab_bound(torch, chi2_core, main[0], main[1],
+                                          main[4], kw["offs"], ns)
+    info = chi2_core.tab_kernel_info(ns, len(kw["offs"]))
+    print(f"phase 3: {name} chi2_from_orbit_tab n_t={n_t} "
+          f"nodes={len(kw['offs'])}: at C={C_cmp} vs plain lnL diff p99 "
+          f"{p99:.3g} max {dmax:.3g}, lnZ diff {dz:.3g}; vs yardstick "
+          f"(torch tab coefficients + orbit v2) p99 {yp99:.3g} max "
+          f"{ydmax:.3g}, lnZ diff {ydz:.3g}; kernel {cmp_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; at C={C_main} kernel {ms:.4f} ms, yardstick "
+          f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{share:.4f} of points in transit) (medians); "
+          f"{info['registers']} registers, {info['local_bytes']} bytes local "
+          f"a thread, {info['blocks_per_sm']} x {info['threads']}-thread "
+          f"blocks = {info['warps_per_sm']} warps per SM, "
+          f"{info['smem_bytes']} bytes shared a block, "
+          f"{info['sms'] * info['blocks_per_sm']} persistent blocks")
+    return dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, yardstick_ms=yard_ms,
+                cmp_ms=cmp_ms, C=C_main, C_cmp=C_cmp, **info)
 
 
 def phase_kernel_targets(torch, chi2_core, single):
@@ -507,33 +637,49 @@ def phase_kernel_targets(torch, chi2_core, single):
     the plain version target by target with the phase-3 gates and draw for
     draw to one launch per target, and timed beside N_BATCH x its
     one-target time at the same chunk (``single``, phase 3's slice shape)
-    and the bound, the sum of the targets' bounds (orbit_bound)."""
+    and the bound, the sum of the targets' bounds (orbit_bound,
+    tab_bound). The tab kernel's plain version on these draws is the orbit
+    plain version on the torch tab coefficients of ``_draws``."""
     from triceratops_tpu_torch.ops.lightcurve import orbit_chunk
 
     C, n_t = orbit_chunk(N_DRAWS), 100
     per = [_draws(torch, C, n_t, NSAMPLES, 0.1 + 0.02 * b, seed=50 + b)
            for b in range(N_BATCH)]
-    offs, wgts = per[0][2:]
+    offs, wgts = per[0][2:4]
     kw = dict(offs=offs, wgts=wgts, ns=NSAMPLES)
     orbit = [torch.stack([p[0][0] for p in per])] + [
         torch.cat([p[0][i] for p in per]) for i in range(1, 6)]
     rest = [torch.cat([p[1][i] for p in per]) for i in range(6)]
+    kud = [torch.cat([p[4][i] for p in per]) for i in range(4)]
     plain = chi2_core.chi2_from_orbit_plain(*orbit, *rest, **kw)
-    bounds = [orbit_bound(torch, chi2_core, p[0], p[1], offs, NSAMPLES)
-              for p in per]
-    bound_ms = sum(b[0] for b in bounds)
+    bounds = {"chi2_from_orbit": [
+        orbit_bound(torch, chi2_core, p[0], p[1], offs, NSAMPLES)
+        for p in per]}
+    bounds["chi2_from_orbit_v3"] = bounds["chi2_from_orbit"]
+    bounds["chi2_from_orbit_tab"] = [
+        tab_bound(torch, chi2_core, p[0], p[1], p[4], offs, NSAMPLES)
+        for p in per]
+
+    def args(kname, o, r, k):
+        return ((*o, *k, r[5]) if kname == "chi2_from_orbit_tab"
+                else (*o, *r))
+
     out = {}
-    for kname in ("chi2_from_orbit", "chi2_from_orbit_v3"):
+    for kname in ("chi2_from_orbit", "chi2_from_orbit_v3",
+                  "chi2_from_orbit_tab"):
         fn = getattr(chi2_core, kname)
-        kern = fn(*orbit, *rest, **kw)
-        singles = torch.cat([fn(*p[0], *p[1], **kw) for p in per])
+        bound_ms = sum(b[0] for b in bounds[kname])
+        kern = fn(*args(kname, orbit, rest, kud), **kw)
+        singles = torch.cat([fn(*args(kname, p[0], p[1], p[4]), **kw)
+                             for p in per])
         torch.cuda.synchronize()
         check(torch.equal(kern, singles), f"{kname}: the {N_BATCH}-target "
               "launch differs from one launch per target")
         gates = [_gate(torch, f"B={N_BATCH} target {b} {kname}",
                        kern[b * C:(b + 1) * C], plain[b * C:(b + 1) * C], C)
                  for b in range(N_BATCH)]
-        ms = _median_ms(torch, lambda: fn(*orbit, *rest, **kw))
+        ms = _median_ms(torch, lambda: fn(*args(kname, orbit, rest, kud),
+                                          **kw))
         one = single[kname]
         print(f"phase 3: targets {kname} B={N_BATCH} x C={C} n_t={n_t} "
               f"nodes={len(offs)}: per target lnL diff p99 <= "
@@ -626,8 +772,9 @@ def _only(c, name):
 
 def phase_slice(torch, chi2_core, tr, workdir):
     """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
-    stars. Returns each kernel's launches in its path's run (v2 or v3),
-    run and the target."""
+    stars. Returns each kernel's launches in its path's run (the tab
+    kernel on the main path, orbit v2 under TRICERATOPS_COEFFS=exact, orbit
+    v3 under the v3 schedule), run, the target and phase 6's median."""
     import contextlib
 
     from triceratops_tpu_torch.ops import fastcore, lightcurve
@@ -643,8 +790,9 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{main_counts}; FPP {t.FPP:.6g}, NFPP {t.NFPP:.6g}")
     print("phase 4: lnZ " + ", ".join(
         f"{n}={v:.4f}" for n, v in zip(names, lnZ)))
-    check(_only(main_counts, "launches_orbit"),
-          f"the main path must launch only the v2 orbit kernel: "
+    check(_only(main_counts, "launches_orbit_tab")
+          and main_counts["launches_orbit_tab"] == len(lnZ),
+          f"the main path must launch only the tab kernel, once per row: "
           f"{main_counts}")
     check(len(lnZ) == 21, f"{len(lnZ)} rows, expected 21")
     check(np.isfinite(lnZ).all(), f"non-finite lnZ {lnZ}")
@@ -663,6 +811,37 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{wall_plain:.3f} s; per-row |lnZ kernel - lnZ plain| max "
           f"{dz.max():.3g}")
     check(dz.max() < 1e-2, f"kernel and plain lnZ differ: {dz}")
+
+    # TRICERATOPS_COEFFS=exact: the exact torch coefficient stage into the
+    # orbit v2 kernel, the route that keeps orbit v2 on a path, held to the
+    # plain path on the same coefficients; its distance to phase 4 is the
+    # two coefficient backends' (not gated: a tab row sits ~1e-2 nats from
+    # its exact row, more on rows far below the winner)
+    fastcore.COEFFS_BACKEND = "exact"
+    try:
+        _reset(chi2_core)
+        wall_exact = run(1)
+        exact_counts = _counts(chi2_core)
+        lnZ_exact = t.lnZ.copy()
+        _reset(chi2_core)
+        wall_exact_plain = run(1, backend="torch")
+        check(not any(_counts(chi2_core).values()),
+              "the plain path launched a kernel under exact coefficients")
+    finally:
+        fastcore.COEFFS_BACKEND = "auto"
+    dz_exact = np.abs(lnZ_exact - t.lnZ)
+    print(f"phase 5: same seed under TRICERATOPS_COEFFS=exact (exact "
+          f"coefficients, orbit v2) {wall_exact:.3f} s, plain path "
+          f"{wall_exact_plain:.3f} s; launches {exact_counts}; per-row "
+          f"|lnZ kernel - lnZ plain| max {dz_exact.max():.3g}; per-row "
+          f"|lnZ exact - lnZ tab (phase 4)| max "
+          f"{np.abs(lnZ_exact - lnZ).max():.3g} (not gated)")
+    check(_only(exact_counts, "launches_orbit")
+          and exact_counts["launches_orbit"] == len(lnZ),
+          f"TRICERATOPS_COEFFS=exact must launch only orbit v2, once per "
+          f"row: {exact_counts}")
+    check(dz_exact.max() < 1e-2,
+          f"exact-coefficient kernel and plain lnZ differ: {dz_exact}")
 
     def run_tf32(guard=None):
         """run(1) under TF32, with the products' guard replaced by
@@ -714,11 +893,13 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     # each kernel's launches in its own path's run: the plane kernels are
-    # on neither path
-    return dict(chi2_supersampled=main_counts["launches"],
-                chi2_supersampled_v3=v3_counts["launches_v3"],
-                chi2_from_orbit=main_counts["launches_orbit"],
-                chi2_from_orbit_v3=v3_counts["launches_orbit_v3"]), run, t, med
+    # on none
+    launches = dict(chi2_supersampled=main_counts["launches"],
+                    chi2_supersampled_v3=v3_counts["launches_v3"],
+                    chi2_from_orbit=exact_counts["launches_orbit"],
+                    chi2_from_orbit_v3=v3_counts["launches_orbit_v3"],
+                    chi2_from_orbit_tab=main_counts["launches_orbit_tab"])
+    return launches, run, t, med
 
 
 def _lnz_rows(res):
@@ -801,8 +982,8 @@ def phase_dormant(torch, chi2_core, workdir):
         check(d_plain.max() < 1e-2, f"{name}: kernel and plain lnZ differ "
               f"by {d_plain}")
         check(d3.max() < 1e-2, f"{name}: v3 and v2 lnZ differ by {d3}")
-        check(_only(c2, "launches_orbit"),
-              f"{name}: v2 must launch only the v2 orbit kernel: {c2}")
+        check(_only(c2, "launches_orbit_tab"),
+              f"{name}: v2 must launch only the tab kernel: {c2}")
         check(_only(c3, "launches_orbit_v3"),
               f"{name}: v3 must launch only the v3 orbit kernel: {c3}")
         check(not any(c_plain.values()),
@@ -821,7 +1002,7 @@ def phase_dormant(torch, chi2_core, workdir):
 
 def phase_ensemble(chi2_core, t):
     """Phase 8: calc_probs_ensemble(n_runs = 3) of the 21-row call on v2:
-    21 orbit launches per run, FPP the mean of the runs."""
+    21 tab-kernel launches per run, FPP the mean of the runs."""
     _, time_, flux, sigma, P = toi465_field()
     _reset(chi2_core)
     t0 = time.perf_counter()
@@ -835,8 +1016,8 @@ def phase_ensemble(chi2_core, t):
           f"NFPP {t.NFPP:.6g}; launches {c}")
     check(t.FPP == float(t.FPP_runs.mean()), "FPP is not the runs' mean")
     check(np.isfinite(t.FPP_std), f"FPP_std {t.FPP_std}")
-    check(_only(c, "launches_orbit") and c["launches_orbit"] == 63,
-          f"the ensemble must make 63 v2 orbit launches: {c}")
+    check(_only(c, "launches_orbit_tab") and c["launches_orbit_tab"] == 63,
+          f"the ensemble must make 63 tab-kernel launches: {c}")
     return wall
 
 
@@ -972,10 +1153,9 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     100, sigma = 4e-4, the 3000-star field): phase 4's target with its two
     nearby stars, and seven one-star targets from seeded (Rp, P) rows
     (BATCH_RP, BATCH_P) through tools/catalog_replay.build_target. Each
-    run must launch the v2 orbit kernel exactly once per computed row of
-    the batch (15 plus 3 per nearby-star slot: one family program per row
-    over all the targets) and nothing else. Returns the warm run's
-    launches."""
+    run must launch the tab kernel exactly once per computed row of the
+    batch (15 plus 3 per nearby-star slot: one family program per row over
+    all the targets) and nothing else. Returns the warm run's launches."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from triceratops_tpu_torch.ops import lightcurve
@@ -1004,8 +1184,10 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
         return out, time.perf_counter() - t0, _counts(chi2_core)
 
     def launches_ok(c, what):
-        check(_only(c, "launches_orbit") and c["launches_orbit"] == expected,
-              f"{what}: expected {expected} v2 orbit launches only, got {c}")
+        check(_only(c, "launches_orbit_tab")
+              and c["launches_orbit_tab"] == expected,
+              f"{what}: expected {expected} tab-kernel launches only, got "
+              f"{c}")
 
     cold, wall_cold, c_cold = timed(None)
     torch.cuda.reset_peak_memory_stats()
@@ -1028,8 +1210,9 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     print(f"phase 10 (i): batch_fpp_full, {N_BATCH} targets x N={N_DRAWS}, "
           f"mesh=None: cold {wall_cold:.4f} s, warm {wall_warm:.4f} s = "
           f"{wall_warm / N_BATCH:.4f} s/target (phase 6 warm median "
-          f"{warm_median:.4f} s per 21-row call); {c_warm['launches_orbit']} "
-          f"orbit launches per call (expected {expected}); peak device "
+          f"{warm_median:.4f} s per 21-row call); "
+          f"{c_warm['launches_orbit_tab']} tab-kernel launches per call "
+          f"(expected {expected}); peak device "
           f"memory {peak_gib:.3f} GiB (DRAW_CAP 2^"
           f"{lightcurve.DRAW_CAP.bit_length() - 1}); cold vs warm max "
           f"|d lnZ| {rerun:.3g}")
@@ -1042,8 +1225,8 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
         (_, _, lnZ1), wall, c = timed(None, one)
         walls.append(wall)
         rows_i = 15 + 3 * len(e["nearby"])
-        check(_only(c, "launches_orbit")
-              and c["launches_orbit"] == rows_i,
+        check(_only(c, "launches_orbit_tab")
+              and c["launches_orbit_tab"] == rows_i,
               f"phase 10 (i) target {i} alone: {c}")
         n = lnZ1.shape[1]
         check(np.array_equal(np.isneginf(lnZ1[0]), np.isneginf(lnZ[i, :n])),
@@ -1117,10 +1300,10 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
           f"(N_local = {N_DRAWS // 2}): batch call {float(ranks[0]['wall']):.4f}"
           f" / {float(ranks[1]['wall']):.4f} s (first call in each rank), "
           f"{wall_spawn:.1f} s with process start; per rank "
-          f"{expected} orbit launches; per-row lnZ within the statistical "
-          f"rule of (i), largest |d| within 5 nats of the winner "
+          f"{expected} tab-kernel launches; per-row lnZ within the "
+          f"statistical rule of (i), largest |d| within 5 nats of the winner "
           f"{worst:.3g}")
-    return c_warm["launches_orbit"]
+    return c_warm["launches_orbit_tab"]
 
 
 def phase_parity():
@@ -1253,8 +1436,8 @@ def main():
             phase_dormant(torch, chi2_core, workdir)
             phase_ensemble(chi2_core, t)
             phase_likelihoods(torch)
-            launches["chi2_from_orbit"] = phase_batch(torch, chi2_core, t,
-                                                      workdir, med)
+            launches["chi2_from_orbit_tab"] = phase_batch(
+                torch, chi2_core, t, workdir, med)
             phase_parity()
             if "--profile" in sys.argv[1:]:
                 phase_profile(torch, run)
@@ -1264,8 +1447,9 @@ def main():
     # each kernel at the main path's shape (n_t = 100, GL-4): the plane
     # kernels at their old 16384-draw chunk, the orbit kernels at
     # orbit_chunk(1e6); no single PyTorch call computes this function, so
-    # no library time. Launches: orbit v2 in phase 10's warm batch call,
-    # orbit v3 in phase v3's call, the plane kernels on neither path
+    # no library time. Launches: the tab kernel in phase 10's warm batch
+    # call, orbit v2 in phase 5's TRICERATOPS_COEFFS=exact call, orbit v3
+    # in phase v3's call, the plane kernels on no path
     src = "triceratops_tpu_torch/csrc/chi2_supersampled.cu"
     kernels = []
     for name, replaces in (
@@ -1273,7 +1457,9 @@ def main():
             ("chi2_supersampled_v3", "triceratops_tpu/ops/pallas_core.py:267"),
             ("chi2_from_orbit", "triceratops_tpu/ops/pallas_core.py:120"),
             ("chi2_from_orbit_v3",
-             "triceratops_tpu/ops/pallas_core.py:267")):
+             "triceratops_tpu/ops/pallas_core.py:267"),
+            ("chi2_from_orbit_tab",
+             "triceratops_tpu/ops/pallas_core.py:120")):
         k = timing["slice"][name]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[name],
@@ -1281,7 +1467,8 @@ def main():
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None,
                "build_s": build_s}
-        for key in ("transpose_ms", "yardstick_ms", "C"):
+        for key in ("transpose_ms", "yardstick_ms", "C", "registers",
+                    "local_bytes", "warps_per_sm"):
             if k.get(key) is not None:
                 row[key] = k[key]
         if name in timing["targets"]:

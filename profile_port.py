@@ -4,20 +4,20 @@ First times the tree's plane v2 kernel (``chi2_supersampled``, in every
 tree since the first) at 16384 draws x 100 points, GL-4, with
 chip_smoke.py's timer. Then builds chip_smoke.py's configuration
 (bench.py's TOI-465-like target, a 3000-star synthetic TRILEGAL field
-and two nearby stars; N = 1e6, nsamples = 20), makes one warm-up call
-and runs chip_smoke.py's profile phase on the kernel path
+and two nearby stars; N = 1e6, nsamples = 20), makes one warm-up call,
+prints chip_smoke.py's phase 6 (three warm calls, seeds 2, 3, 4, and
+their median), then runs chip_smoke.py's profile phase on the kernel path
 (``backend="auto"``): an unprofiled warm call for the wall, and a call
 under torch.profiler for the kernel launches, device time, idle share,
-CUDA kernel count and host ranges.
+CUDA kernel count, the top device ops and the host ranges.
 
     python3 profile_port.py [--tree DIR] [--walls]
 
 --tree imports the port (triceratops_tpu_torch) from another checkout,
 e.g. an unpacked earlier commit, so that two trees are profiled by the
 same code in one run. --walls skips the kernel timing and the profile
-and prints chip_smoke.py's phase 6 instead: three warm calls (seeds 2, 3,
-4) after a first one, and their median. The plain torch path's profile
-is ``chip_smoke.py --profile``.
+and prints only the warm walls. The plain torch path's profile is
+``chip_smoke.py --profile``.
 """
 
 import argparse
@@ -52,11 +52,10 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         _, run = smoke.make_run(tr, workdir)
         print(f"profile_port: first call {run(1):.3f} s")
-        if args.walls:
-            walls = [run(seed) for seed in (2, 3, 4)]
-            print(f"profile_port: warm calc_probs walls {walls} s, median "
-                  f"{sorted(walls)[1]:.4f} s")
-        else:
+        walls = [run(seed) for seed in (2, 3, 4)]
+        print(f"profile_port: warm calc_probs walls {walls} s, median "
+              f"{sorted(walls)[1]:.4f} s")
+        if not args.walls:
             smoke.phase_profile(torch, run, ("auto",))
     return 0
 
@@ -69,8 +68,8 @@ def plane_kernel_ms(torch, smoke):
     from triceratops_tpu_torch.ops.fastcore import exposure_z2_poly
 
     C, n_t = 16384, 100
-    orbit, rest, offs, wgts = smoke._draws(torch, C, n_t, smoke.NSAMPLES,
-                                           0.15, seed=0)
+    orbit, rest, offs, wgts, _ = smoke._draws(torch, C, n_t, smoke.NSAMPLES,
+                                              0.15, seed=0)
     q0, q1, q2, front = exposure_z2_poly(orbit[0], 0.0, *orbit[1:])
     planes = (q0.contiguous(), q1.contiguous(), q2.contiguous(),
               front.to(q0.dtype))

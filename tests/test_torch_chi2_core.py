@@ -2,8 +2,10 @@
 it (ops/lightcurve.py), port vs the JAX Pallas kernels (the v2
 ``chi2_supersampled`` and the time-major ``chi2_supersampled_v3``) in
 interpret mode: the plane entry points against the kernels on identical
-planes, the orbit entry points (``chi2_from_orbit``, ``_v3``) against the
-JAX package's whole fused step, ``ops/lightcurve.py::_chi2_pallas``.
+planes, the orbit entry points (``chi2_from_orbit``, ``_v3``, and
+``chi2_from_orbit_tab``, which computes the tabulated coefficients itself)
+against the JAX package's whole fused step,
+``ops/lightcurve.py::_chi2_pallas``.
 
 Tolerances are those of tests/test_pallas_core.py: per-draw lnL carries
 O(0.01-0.1) reordering noise when sigma is small (a ~1e-7 f32 rounding
@@ -161,8 +163,8 @@ class TestChi2Kernel:
 
     @pytest.mark.cuda
     def test_kernel_matches_plain_on_card(self):
-        """On the card: ``_chi2_fused`` launches the v2 orbit kernel (and no
-        plane kernel), against the plain planes on the same CUDA tensors,
+        """On the card: ``_chi2_fused`` launches the v2 tab kernel (and no
+        other kernel), against the plain planes on the same CUDA tensors,
         at 16384 x 100, GL-4, with the lnL-scale gates above."""
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA card and nvcc")
@@ -172,7 +174,7 @@ class TestChi2Kernel:
         before = _counts()
         kern = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1,
                                u2, g, 100, 20)
-        assert _counts() == _plus(before, "launches_orbit")
+        assert _counts() == _plus(before, "launches_orbit_tab")
         from triceratops_tpu_torch.ops.fastcore import (
             deficit_coeffs, exposure_z2_poly)
         cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
@@ -244,7 +246,8 @@ class TestChi2Kernel:
         assert np.quantile(d, 0.99) < 0.05 and d.max() < 1.0
 
 
-COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3")
+COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
+            "launches_orbit_tab", "launches_coeffs_tab")
 
 
 def _counts():
@@ -361,6 +364,269 @@ class TestOrbitKernel:
         d = ((kern - plain).abs().double() * inv).cpu().numpy()
         near = lnL_p > lnL_p.max() - 50.0
         assert np.quantile(d[near], 0.99) < 0.05 and d[near].max() < 1.0
+
+
+def _tab_inputs(N=256, n_t=40, seed=21):
+    """``_inputs``-like f32 draws whose k spans the coefficient table's
+    eight k-segments, N / 8 in each, with varied limb darkening; g scales
+    the deeper draws down so every lnL stays within a few hundred nats of
+    the curve (k up to 2 is an undiluted eclipse of depth ~1)."""
+    rng = np.random.default_rng(seed)
+    br = tfc._TAB_BREAKS
+    time = np.linspace(-0.15, 0.15, n_t)
+    obs = rng.normal(0, 5e-4, n_t)
+    k = np.concatenate([rng.uniform(br[s], br[s + 1], N // 8)
+                        for s in range(8)])
+    P = np.full(N, 3.0)
+    aR = np.full(N, 9.6)
+    inc = np.arccos(rng.uniform(0, 1, N) * (1 + k) / aR)
+    e = rng.uniform(0, 0.5, N)
+    w = rng.uniform(-np.pi, np.pi, N)
+    u1 = rng.uniform(0.1, 0.6, N)
+    u2 = rng.uniform(0.0, 0.3, N)
+    g = rng.uniform(0.2, 1.0, N) * np.minimum(1.0, (0.05 / k) ** 2)
+    return [f32(a) for a in (time, obs, k, P, aR, inc, e, w, u1, u2, g)]
+
+
+def _tab_args(a, ns, to=torch.as_tensor):
+    """(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev) for
+    ``chi2_from_orbit_tab`` from ``_inputs`` arrays, plus the nodes as
+    ``_chi2_fused`` picks them."""
+    time, obs, k, P, aR, inc, e, w, u1, u2, g = (to(x) for x in a)
+    if ns > 1:
+        o, wt = tlc._gl_exposure_nodes(0.00139, ns)
+        offs, wgts = tuple(map(float, o)), tuple(map(float, wt))
+    else:
+        offs, wgts = (0.0,), (1.0,)
+    return ((time, P, aR, inc, e, w, k, u1, u2, g, obs[None, :].contiguous()),
+            offs, wgts)
+
+
+class TestTabKernel:
+    @pytest.mark.parametrize("n_t", [40, 137])
+    @pytest.mark.parametrize("ns", [4, 1])
+    def test_plain_matches_jax_chi2_pallas(self, ns, n_t, monkeypatch):
+        """``chi2_from_orbit_tab`` on CPU tensors (its plain version: the
+        torch tab coefficients, then the orbit plain version) against the
+        JAX package's whole fused step, ``_chi2_pallas`` with the v2 Pallas
+        kernel in interpret mode, which takes the same (k, u1, u2), on f32
+        draws over all eight k-segments (C = 256): lnL p99 < 0.05, max <
+        1.0, lnZ within 1e-2 nats; no kernel launched."""
+        monkeypatch.setattr(jlc, "PALLAS_V", "2")
+        a = _tab_inputs(n_t=n_t)
+        time, obs, k, P, aR, inc, e, w, u1, u2, g = map(jnp.asarray, a)
+        want = np.asarray(jlc._chi2_pallas(time, 0.00139, obs, k, P, aR,
+                                           inc, e, w, u1, u2, g, n_t, ns,
+                                           True), np.float64)
+        args, offs, wgts = _tab_args(a, ns)
+        before = _counts()
+        got = chi2_core.chi2_from_orbit_tab(
+            *args, offs=offs, wgts=wgts, ns=ns).numpy().astype(np.float64)
+        assert _counts() == before
+        inv = 1.0 / (2 * 5e-4 ** 2)
+        d = np.abs(got - want) * inv
+        assert np.quantile(d, 0.99) < 0.05, np.quantile(d, 0.99)
+        assert d.max() < 1.0, d.max()
+        dz = abs(float(log_mean_exp_torch(torch.as_tensor(-got * inv), 256))
+                 - float(log_mean_exp_jax(jnp.asarray(-want * inv), 256)))
+        assert dz < 1e-2, dz
+
+    def test_wrapper_rejects_bad_inputs(self):
+        """dtype, shape, contiguity, the draw multiple of 256, the node
+        count and ns = 1's one node, before anything runs; on the CPU the
+        wrapper gives its plain version, which is the torch coefficient
+        stage into ``chi2_from_orbit_plain``."""
+        fn = chi2_core.chi2_from_orbit_tab
+        args, offs, wgts = _tab_args(_tab_inputs(), 4)
+        kw = dict(offs=offs, wgts=wgts, ns=20)
+        with pytest.raises(TypeError, match="float32"):
+            fn(*args[:6], args[6].double(), *args[7:], **kw)
+        with pytest.raises(ValueError, match="shape"):
+            fn(*args[:7], args[7][:128], *args[8:], **kw)
+        with pytest.raises(ValueError, match="shape"):
+            fn(*args[:9], args[9][:, None], args[10], **kw)
+        with pytest.raises(ValueError, match="1-d"):
+            fn(args[0][None, None, :], *args[1:], **kw)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(*args[:6], torch.stack([args[6], args[6]], 1)[:, 0],
+               *args[7:], **kw)
+        short = (args[0], *(x[:128] for x in args[1:10]), args[10])
+        with pytest.raises(ValueError, match="multiple of 256"):
+            fn(*short, **kw)
+        with pytest.raises(ValueError, match="offsets"):
+            fn(*args, offs=offs * 2, wgts=wgts * 2, ns=20)
+        with pytest.raises(ValueError, match="ns = 1"):
+            fn(*args, offs=offs, wgts=wgts, ns=1)
+        with pytest.raises(ValueError, match="no chi2 kernel"):
+            fn(*(x.to("meta") for x in args), **kw)
+        got = fn(*args, offs=(0.0,), wgts=(1.0,), ns=1)
+        time, P, aR, inc, e, w, k, u1, u2, g, obs = args
+        cA, cB1, cB2, *segs = tfc.cheb_deficit_coeffs_tab(k, u1, u2)
+        want = chi2_core.chi2_from_orbit_plain(
+            time, P, aR, inc, e, w, cA, cB1, cB2, torch.stack(segs, 1),
+            g[:, None], obs, offs=(0.0,), wgts=(1.0,), ns=1)
+        assert torch.equal(got, want)
+
+    def test_targets_on_cpu(self):
+        """B = 3 targets in one call (time and obs_dev (3, n_t), the draws
+        target-major) give each target's draws what a call on that target
+        alone gives."""
+        per = [_tab_args(_tab_inputs(n_t=24, seed=30 + b), 4)
+               for b in range(3)]
+        offs, wgts = per[0][1:]
+        args = [torch.stack([p[0][0] for p in per])]
+        args += [torch.cat([p[0][i] for p in per]) for i in range(1, 11)]
+        kw = dict(offs=offs, wgts=wgts, ns=20)
+        got = chi2_core.chi2_from_orbit_tab(*args, **kw)
+        alone = torch.cat([chi2_core.chi2_from_orbit_tab(*p[0], **kw)
+                           for p in per])
+        torch.testing.assert_close(got, alone, rtol=1e-6, atol=0)
+
+    def test_coeffs_wrapper_on_cpu(self):
+        """``deficit_coeffs_tab`` on CPU tensors is the torch tab stage;
+        it checks its inputs and launches nothing."""
+        a = _tab_inputs()
+        k, u1, u2 = (torch.as_tensor(a[i]) for i in (2, 8, 9))
+        before = _counts()
+        got = chi2_core.deficit_coeffs_tab(k, u1, u2)
+        assert _counts() == before
+        for x, y in zip(got, tfc.cheb_deficit_coeffs_tab(k, u1, u2)):
+            assert torch.equal(x, y)
+        with pytest.raises(TypeError, match="float32"):
+            chi2_core.deficit_coeffs_tab(k.double(), u1, u2)
+        with pytest.raises(ValueError, match="shape"):
+            chi2_core.deficit_coeffs_tab(k, u1[:8], u2)
+        with pytest.raises(ValueError, match="C >= 1"):
+            chi2_core.deficit_coeffs_tab(k[:0], u1[:0], u2[:0])
+
+    def test_route(self, monkeypatch):
+        """``lightcurve.tab_in_kernel``: on a CUDA device the v2 schedule
+        with tabulated coefficients ("tab", or "auto" with float32 draws)
+        takes the tab kernel; "exact", float64 draws under "auto", or the
+        v3 schedule take the torch coefficient stage into the schedule's
+        orbit entry point; a CPU device always takes the latter (its plain
+        version). ``_chi2_fused`` calls the entry point the rule and
+        ``CHI2_SCHEDULE`` name, with (k, u1, u2) or the coefficients."""
+        cuda, cpu = torch.device("cuda"), torch.device("cpu")
+        f4, f8 = torch.float32, torch.float64
+        tab = tlc.tab_in_kernel
+        assert tab(cuda, f4, "auto", "2")
+        assert tab("cuda:0", f4, "tab", "2")
+        assert tab(cuda, f8, "tab", "2")
+        assert not tab(cuda, f4, "exact", "2")
+        assert not tab(cuda, f8, "auto", "2")
+        for backend in ("auto", "tab", "exact"):
+            assert not tab(cuda, f4, backend, "3")
+            assert not tab(cpu, f4, backend, "2")
+            assert not tab(cpu, f4, backend, "3")
+
+        a = _tab_inputs(n_t=24)
+        time, obs, k, P, aR, inc, e, w, u1, u2, g = map(torch.as_tensor, a)
+        names = ("chi2_from_orbit_tab", "chi2_from_orbit",
+                 "chi2_from_orbit_v3")
+        called = []
+        for name in names:
+            monkeypatch.setattr(
+                chi2_core, name,
+                lambda *xs, _n=name, **kw: called.append((_n, len(xs))))
+        for in_kernel, schedule, want in (
+                (True, "2", ("chi2_from_orbit_tab", 11)),
+                (False, "2", ("chi2_from_orbit", 12)),
+                (False, "3", ("chi2_from_orbit_v3", 12))):
+            monkeypatch.setattr(tlc, "tab_in_kernel",
+                                lambda *_, _v=in_kernel: _v)
+            monkeypatch.setattr(tlc, "CHI2_SCHEDULE", schedule)
+            called.clear()
+            tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1, u2,
+                            g, 24, 20)
+            assert called == [want]
+
+    def test_fused_cpu_route_unchanged(self, monkeypatch):
+        """On CPU tensors ``_chi2_fused`` runs the torch coefficient stage
+        into the orbit plain version under every coefficient backend, and
+        under "tab" / "auto" gives exactly the tab kernel's plain
+        version."""
+        a = _tab_inputs(n_t=24)
+        time, obs, k, P, aR, inc, e, w, u1, u2, g = map(torch.as_tensor, a)
+        args, offs, wgts = _tab_args(a, 20)
+        want = chi2_core.chi2_from_orbit_tab_plain(*args, offs=offs,
+                                                   wgts=wgts, ns=20)
+        for backend in ("auto", "tab"):
+            monkeypatch.setattr(tfc, "COEFFS_BACKEND", backend)
+            before = _counts()
+            got = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w,
+                                  u1, u2, g, 24, 20)
+            assert _counts() == before
+            assert torch.equal(got, want)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("n_t,ns", [(100, 20), (137, 1), (2000, 20)])
+    def test_kernel_matches_plain_on_card(self, n_t, ns):
+        """On the card: the tab kernel against its plain version on the same
+        CUDA tensors (C = 8192, k over all eight k-segments), with the
+        lnL-scale gates above, on the draws within 50 of the best lnL at
+        n_t = 2000 (as ``TestOrbitKernel``)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        a = _tab_inputs(N=8192, n_t=n_t, seed=9)
+        args, offs, wgts = _tab_args(
+            a, ns, lambda x: torch.as_tensor(x, device="cuda"))
+        before = _counts()
+        kern = chi2_core.chi2_from_orbit_tab(*args, offs=offs, wgts=wgts,
+                                             ns=ns)
+        assert _counts() == _plus(before, "launches_orbit_tab")
+        plain = chi2_core.chi2_from_orbit_tab_plain(*args, offs=offs,
+                                                    wgts=wgts, ns=ns)
+        inv = 1.0 / (2 * 5e-4 ** 2)
+        lnL_p = (-plain.double() * inv).cpu().numpy()
+        d = ((kern - plain).abs().double() * inv).cpu().numpy()
+        near = lnL_p > lnL_p.max() - 50.0
+        assert np.quantile(d[near], 0.99) < 0.05 and d[near].max() < 1.0
+
+    @pytest.mark.cuda
+    def test_coeffs_match_cpu_on_card(self):
+        """On the card: the kernel's own coefficient function
+        (``deficit_coeffs_tab``) within 3e-6 of the CPU
+        ``cheb_deficit_coeffs_tab`` (tests/test_fastcore.py's tolerance)
+        over all eight k-segments and the break values themselves."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        rng = np.random.default_rng(17)
+        br = tfc._TAB_BREAKS
+        k = np.concatenate([rng.uniform(br[s], br[s + 1], 4096)
+                            for s in range(8)] + [br, [5e-4, 2.5]])
+        u1 = rng.uniform(0.0, 0.8, k.size)
+        u2 = np.minimum(rng.uniform(0.0, 0.4, k.size), 1.0 - u1)
+        cpu = [torch.as_tensor(f32(x)) for x in (k, u1, u2)]
+        want = tfc.cheb_deficit_coeffs_tab(*cpu)
+        before = _counts()
+        got = chi2_core.deficit_coeffs_tab(*(x.cuda() for x in cpu))
+        assert _counts() == _plus(before, "launches_coeffs_tab")
+        for x, y in zip(got, want):
+            assert float((x.cpu() - y).abs().max()) < 3e-6
+
+    @pytest.mark.cuda
+    def test_targets_in_one_launch_on_card(self):
+        """On the card: one launch over B = 4 targets (each its own curve)
+        equals four one-target launches draw for draw."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        per = []
+        for b in range(4):
+            a = _tab_inputs(N=4096, n_t=100, seed=60 + b)
+            a[0] = f32(a[0] * (1.0 + 0.2 * b))
+            per.append(_tab_args(
+                a, 20, lambda x: torch.as_tensor(x, device="cuda")))
+        offs, wgts = per[0][1:]
+        args = [torch.stack([p[0][0] for p in per])]
+        args += [torch.cat([p[0][i] for p in per]) for i in range(1, 11)]
+        kw = dict(offs=offs, wgts=wgts, ns=20)
+        before = _counts()
+        kern = chi2_core.chi2_from_orbit_tab(*args, **kw)
+        assert _counts() == _plus(before, "launches_orbit_tab")
+        singles = torch.cat([chi2_core.chi2_from_orbit_tab(*p[0], **kw)
+                             for p in per])
+        torch.testing.assert_close(kern, singles, rtol=0, atol=0)
 
 
 class TestSchedule:

@@ -1,15 +1,20 @@
 // Fused exposure z^2 -> supersample -> Chebyshev deficit -> chi^2 for one
 // draw chunk: two schedules, each built over two z^2 sources chosen at
-// compile time.
+// compile time, and a third instance of the v2 schedule that also computes
+// the draws' deficit coefficients itself.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   * ops/pallas_core.py::chi2_supersampled (body _chi2_kernel, helper
-//     _clenshaw_tile; the v2 schedule): chi2_kernel below;
+//     _clenshaw_tile; the v2 schedule): chi2_kernel and chi2_kernel_tab
+//     below;
 //   * ops/pallas_core.py::chi2_supersampled_v3 (body _chi2_kernel_v3; the
 //     time-major v3 schedule): chi2_kernel_v3 below;
 // and, with the orbit source, the XLA producer that fed them on the TPU
 // (ops/lightcurve.py::_chi2_pallas: exposure_z2_poly, or projected_z at
-// one node). All compute the same function:
+// one node); chi2_kernel_tab also replaces the rest of that producer, the
+// tabulated coefficient stage (ops/fastcore.py::cheb_deficit_coeffs_tab:
+// one matmul per chunk on the TPU's matrix unit). All compute the same
+// function:
 //
 //   out[c] = sum_t gD (2 obs[t] + gD) + sum_t obs[t]^2,
 //   gD     = g[c] * front[c,t] * sum_s wgt[s] D_c(z_s),
@@ -34,13 +39,20 @@
 // FP32 operations per point on the Kepler solve and the z^2 model (among
 // them an IEEE sin/cos pair, a cube root, a square root and fourteen
 // divisions, each several instructions), plus ~300 per point in transit
-// for the deficit at GL-4: operations bound it.
+// for the deficit at GL-4: operations bound it. chi2_kernel_tab reads 40
+// bytes per draw instead of 260 and adds ~2 deg 162 + 324 operations per
+// draw (deg <= 24, its k-segment's degree) for the coefficients: still
+// operations.
 //
 // What the design does about it:
 //   * point_deficit, the per-point work (sqrt map, recurrence with its
 //     segment select, clip, node weights), is one inlined device function
-//     that every kernel calls; the draw's 3 x 18 coefficients and 5
-//     segment scalars live in registers and the recurrence is unrolled;
+//     that every kernel calls, templated on where the draw's 3 x 18
+//     coefficients live: in registers (DrawCoeffs: every lane holds all
+//     54, loaded from the (C, 18) arrays) or in the warp's shared-memory
+//     slot (SharedCoeffs: one copy per warp, the point's segment picks a
+//     row); the five segment scalars stay in registers; the recurrence is
+//     unrolled;
 //   * the orbit source keeps the (C, n_t) planes out of device memory
 //     altogether: its per-draw constants (clamped e, n, the mean anomaly at
 //     transit, sin/cos w, sin^2/cos^2 inc, sqrt(1 - e^2)) are computed once
@@ -50,13 +62,26 @@
 //     on the solve; a 32-point group in which no lane is in front with
 //     z < zmax at any node skips the square roots and the recurrence
 //     (__any_sync); the per-draw sum is a __shfl_xor_sync butterfly;
+//   * chi2_kernel_tab: the v2 schedule in persistent blocks (as many as
+//     fit on the card, from the occupancy calculator) whose warps walk the
+//     draws. Each block copies the (152, 162) coefficient table (98,496
+//     bytes) into shared memory once, with one TMA bulk copy completed on
+//     an mbarrier. Per draw the warp computes fastcore.py's tabulated
+//     coefficients itself (tab_coeffs: the k-segment's kappa, the
+//     Chebyshev recurrence in kappa, 27 lanes x 2 outputs of the three
+//     basis sums over the segment's table rows, the limb-darkening
+//     weights) into its own slot, then runs the v2 point loop on it. The
+//     (C, 152) and (C, 162) products of the torch stage and the (C, 59)
+//     coefficients never reach device memory, and freeing the 54
+//     coefficient registers lets 16-warp blocks run two to an SM (the
+//     table allows two copies per SM);
 //   * v3 (chi2_kernel_v3): one thread per draw, the 32 draws of a warp
 //     consecutive, each thread walking the time axis, so a time-major
 //     plane row is one coalesced 128-byte load per warp and the orbit
 //     source reads one broadcast time value; the skip is a warp vote over
 //     32 draws x TIME_SUB time steps. Each thread owns its draw's sum: no
 //     shuffle, no atomic.
-// Both are deterministic. Points inside a group or block that does run keep
+// All are deterministic. Points inside a group or block that does run keep
 // their ~1e-8 deficit residue at z >= zmax, as on the TPU.
 //
 // Targets: the orbit entry points take B targets in one launch (the
@@ -67,7 +92,9 @@
 // schedule's draw tile (256 for v2, 128 for v3), so a block never mixes
 // targets: b is computed from the block index, a value uniform over the
 // block that the compiler keeps in uniform registers, and the warp votes
-// stay per target. The plane entry points are one target (Cb = C).
+// stay per target. In chi2_kernel_tab a warp serves one draw at a time, so
+// b = c / Cb is uniform over the warp, and a draw's result does not depend
+// on the launch it is in. The plane entry points are one target (Cb = C).
 //
 // Float32 semantics: square roots and divisions stay IEEE, sin/cos/atan2
 // are the accurate sinf/cosf/atan2f (no --use_fast_math, no __sinf), the
@@ -77,10 +104,16 @@
 // nvcc contracts a*b + c into FMAs; the two places where that would undo a
 // deliberate rounding, the compensated 2pi wrap and the sum of squares
 // cu^2 + cos^2(i) su^2, are written with __fmul_rn / __fadd_rn so they
-// round each product on its own, as core/kepler.py does.
+// round each product on its own, as core/kepler.py does. In tab_coeffs
+// the Chebyshev recurrence in kappa is written the same way (a rounding
+// there grows with the degree); the basis sums and the weights are plain
+// FMAs, and every scalar of the table's segments is the float32 that
+// torch rounds fastcore.py's Python floats to.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -91,6 +124,19 @@ constexpr int V3_THREADS = 32;    // one warp per block spreads small C
 constexpr int V3_MIN_BLOCKS = 16;
 constexpr int V3_DRAW_LANES = 128;
 constexpr int TIME_SUB = 8;
+// chi2_kernel_tab: warps per block and blocks per SM the registers must
+// allow (2 x 16 warps: at most 64 registers a thread), floats per warp
+// slot, the coefficient table's segments and columns (3 z-segments x
+// M_CHEB x 3 basis functions), and the lanes that form the 54 outputs,
+// two each
+constexpr int TAB_WARPS = 16;
+constexpr int TAB_MIN_BLOCKS = 2;
+constexpr int TAB_THREADS = TAB_WARPS * 32;
+constexpr int TAB_SLOT = 64;
+constexpr int TAB_SEGS = 8;
+constexpr int TAB_COLS = 3 * M_CHEB * 3;
+constexpr int TAB_OUT_LANES = 3 * M_CHEB / 2;
+constexpr int TAB_OUT = 3 * M_CHEB + 5;   // deficit_coeffs_tab_launch's row
 
 // core/kepler.py's constants: each Python double rounded once to f32, as
 // torch and jax round a Python scalar that meets a float32 tensor
@@ -126,9 +172,38 @@ struct Chi2Args {
 };
 
 // One draw's deficit coefficients and segment scalars, in registers.
+// segment() names the coefficient row of a point's z-segment and coef()
+// reads one coefficient of it (the accessor point_deficit is written
+// against).
 struct DrawCoeffs {
   float a[M_CHEB], b1[M_CHEB], b2[M_CHEB];
   float zsplit, zmid, invA, invB1, invB2, zmax2;
+
+  struct Seg {
+    bool inB1, inB2;
+  };
+  __device__ __forceinline__ Seg segment(bool inB1, bool inB2) const {
+    return {inB1, inB2};
+  }
+  __device__ __forceinline__ float coef(const Seg& sg, int m) const {
+    return sg.inB2 ? b2[m] : (sg.inB1 ? b1[m] : a[m]);
+  }
+};
+
+// One draw's coefficients in its warp's shared-memory slot, A at 0, B1 at
+// M_CHEB, B2 at 2 M_CHEB (the same m of the three rows in three banks),
+// and the segment scalars in registers.
+struct SharedCoeffs {
+  const float* slot;
+  float zsplit, zmid, invA, invB1, invB2, zmax2;
+
+  using Seg = const float*;
+  __device__ __forceinline__ Seg segment(bool inB1, bool inB2) const {
+    return slot + (inB2 ? 2 * M_CHEB : (inB1 ? M_CHEB : 0));
+  }
+  __device__ __forceinline__ float coef(Seg sg, int m) const {
+    return sg[m];
+  }
 };
 
 __device__ __forceinline__ void load_coeffs(DrawCoeffs& k, const Chi2Args& p,
@@ -345,10 +420,11 @@ __device__ __forceinline__ bool exposure_z2(float a0, float a1, float a2,
 }
 
 // Node-weighted mean deficit at one point: sqrt map, per-point segment
-// select, 18-step Clenshaw, clip to [0, 1].
-template <int S>
+// select, 18-step Clenshaw, clip to [0, 1]. Coeffs is DrawCoeffs or
+// SharedCoeffs.
+template <int S, class Coeffs>
 __device__ __forceinline__ float point_deficit(const float (&z2)[S],
-                                               const DrawCoeffs& k,
+                                               const Coeffs& k,
                                                const Nodes& nodes) {
   float dbar = 0.0f;
 #pragma unroll
@@ -361,38 +437,31 @@ __device__ __forceinline__ float point_deficit(const float (&z2)[S],
     sx = fminf(fmaxf(sx, 0.0f), 1.0f);
     const float x = sqrtf(sx) - sqrtf(1.0f - sx);
     const float two_x = 2.0f * x;
+    const typename Coeffs::Seg sg = k.segment(inB1, inB2);
     float bb1 = 0.0f, bb2 = 0.0f;
 #pragma unroll
     for (int m = M_CHEB - 1; m > 0; --m) {
-      const float cm = inB2 ? k.b2[m] : (inB1 ? k.b1[m] : k.a[m]);
+      const float cm = k.coef(sg, m);
       const float nb = cm + two_x * bb1 - bb2;
       bb2 = bb1;
       bb1 = nb;
     }
-    const float c0 = inB2 ? k.b2[0] : (inB1 ? k.b1[0] : k.a[0]);
+    const float c0 = k.coef(sg, 0);
     const float D = fminf(fmaxf(c0 + x * bb1 - bb2, 0.0f), 1.0f);
     dbar = dbar + nodes.wgt[s] * D;
   }
   return dbar;
 }
 
-template <class Src, int S>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-chi2_kernel(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (c >= C) return;  // whole warp leaves together
-
-  // the block's target (Cb % WARPS_PER_BLOCK == 0)
-  const int64_t row =
-      (int64_t)((blockIdx.x * WARPS_PER_BLOCK) / p.Cb) * n_t;
-  const Src src = src_all.target(row);
-  const float* obs = p.obs + row;
-  DrawCoeffs k;
-  load_coeffs(k, p, c);
-  const float gc = __ldg(p.g + c);
-  const typename Src::Draw d = src.draw(c);
-
+// The v2 schedule's sum for one draw, run by its warp: lanes stride the
+// time axis, a 32-point group with no lane in transit skips the deficit,
+// and a butterfly leaves the draw's sum in every lane.
+template <class Src, int S, class Coeffs>
+__device__ __forceinline__ float draw_chi2(const Src& src,
+                                           const typename Src::Draw& d,
+                                           const Coeffs& k, float gc,
+                                           const float* obs, int n_t,
+                                           const Nodes& nodes, int lane) {
   float acc = 0.0f;
   for (int t0 = 0; t0 < n_t; t0 += 32) {
     const int t = t0 + lane;
@@ -415,6 +484,26 @@ chi2_kernel(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
+template <class Src, int S>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+chi2_kernel(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  if (c >= C) return;  // whole warp leaves together
+
+  // the block's target (Cb % WARPS_PER_BLOCK == 0)
+  const int64_t row =
+      (int64_t)((blockIdx.x * WARPS_PER_BLOCK) / p.Cb) * n_t;
+  const Src src = src_all.target(row);
+  DrawCoeffs k;
+  load_coeffs(k, p, c);
+  const float gc = __ldg(p.g + c);
+  const typename Src::Draw d = src.draw(c);
+  const float acc =
+      draw_chi2<Src, S>(src, d, k, gc, p.obs + row, n_t, nodes, lane);
   if (lane == 0) p.out[c] = acc;
 }
 
@@ -475,6 +564,224 @@ chi2_kernel_v3(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
     }
   }
   p.out[c] = acc + obs2;
+}
+
+// ---------------------------------------------------------------------------
+// The tabulated coefficient stage inside the kernel (chi2_kernel_tab).
+
+// The coefficient table's k-segments (fastcore.py::_tab_kappa_onehot), each
+// scalar the float32 that torch rounds fastcore.py's Python float to.
+struct TabSegs {
+  float lo[TAB_SEGS];     // the segment's lower break
+  float shift[TAB_SEGS];  // kind 0, 3: lo; kind 1: log lo; kind 2: hi
+  float den[TAB_SEGS];    // hi - lo, or log hi - log lo (kind 1)
+  int kind[TAB_SEGS];     // 0 linear, 1 log, 2 sqrt toward hi, 3 toward lo
+  int deg[TAB_SEGS];      // Chebyshev terms in kappa
+  int row0[TAB_SEGS];     // the segment's first row of the table
+  float kmin, kmax;       // the table's k range (clip)
+  float slope, floor_;    // _BREAK_SLOPE, _BREAK_FLOOR of _segments
+  int n_rows;             // rows of the table (sum of deg)
+};
+
+// The per-draw inputs of chi2_kernel_tab besides its orbit.
+struct TabArgs {
+  const float* k;
+  const float* u1;
+  const float* u2;
+  const float* g;
+  const float* obs;   // (B, n_t), row c / Cb for draw c
+  const float* tab;   // (n_rows, TAB_COLS) in device memory
+  float* out;
+  int Cb;             // draws per target
+};
+
+__host__ __device__ constexpr int tab_floats(int n_rows) {
+  return n_rows * TAB_COLS;
+}
+
+__host__ __device__ constexpr int tab_smem_bytes(int n_rows) {
+  return 4 * (tab_floats(n_rows) + TAB_WARPS * TAB_SLOT);
+}
+
+// Copy the table (bytes, a multiple of 16) from device memory into the
+// block's shared memory: one TMA bulk copy issued by thread 0, completed on
+// an mbarrier that every thread then waits on.
+__device__ __forceinline__ void stage_table(float* dst, const float* src,
+                                            uint32_t bytes) {
+  __shared__ uint64_t bar;
+  const uint32_t bar_a = (uint32_t)__cvta_generic_to_shared(&bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar_a),
+        "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+        "l"((uint64_t)__cvta_generic_to_global(src)), "r"(bytes), "r"(bar_a)
+        : "memory");
+  }
+  __syncthreads();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar_a)
+        : "memory");
+  } while (!done);
+}
+
+// One draw's tabulated deficit coefficients (fastcore.py::
+// cheb_deficit_coeffs_tab), computed by its warp from the table in shared
+// memory: lanes 0..26 write the 54 coefficients to slot (segment s, term m
+// at s M_CHEB + m), two each; every lane returns the segment scalars of
+// _segments(k) in k. The caller syncs the warp before reading the slot.
+__device__ __forceinline__ void tab_coeffs(const float* tab,
+                                           const TabSegs& ts, float kd,
+                                           float u1, float u2, int lane,
+                                           float* slot, SharedCoeffs& k) {
+  const float kc = fminf(fmaxf(kd, ts.kmin), ts.kmax);
+  // the active k-segment: the last whose lower break kc reaches
+  float shift = ts.shift[0], den = ts.den[0];
+  int kind = ts.kind[0], deg = ts.deg[0], row0 = ts.row0[0];
+#pragma unroll
+  for (int j = 1; j < TAB_SEGS; ++j) {
+    if (kc >= ts.lo[j]) {
+      shift = ts.shift[j];
+      den = ts.den[j];
+      kind = ts.kind[j];
+      deg = ts.deg[j];
+      row0 = ts.row0[j];
+    }
+  }
+  float t;
+  if (kind == 0) {
+    t = (kc - shift) / den;
+  } else if (kind == 1) {
+    t = (logf(kc) - shift) / den;
+  } else if (kind == 2) {
+    t = 1.0f - sqrtf(fmaxf(shift - kc, 0.0f) / den);
+  } else {
+    t = sqrtf(fmaxf(kc - shift, 0.0f) / den);
+  }
+  const float kappa = fminf(fmaxf(2.0f * t - 1.0f, -1.0f), 1.0f);
+
+  if (lane < TAB_OUT_LANES) {
+    // basis sums sum_j T_j(kappa) tab[row0 + j, col] over this lane's six
+    // columns (outputs 2 lane and 2 lane + 1, three basis functions each)
+    const float2* col =
+        reinterpret_cast<const float2*>(tab + row0 * TAB_COLS + 6 * lane);
+    float bas[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const float two_k = 2.0f * kappa;
+    float Tj = 1.0f, Tn = kappa;   // T_j and T_{j+1}
+    for (int j = 0; j < deg; ++j) {
+      const float2* r = col + j * (TAB_COLS / 2);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float2 v = r[q];
+        bas[2 * q] = fmaf(Tj, v.x, bas[2 * q]);
+        bas[2 * q + 1] = fmaf(Tj, v.y, bas[2 * q + 1]);
+      }
+      const float Tnn = __fsub_rn(__fmul_rn(two_k, Tn), Tj);
+      Tj = Tn;
+      Tn = Tnn;
+    }
+    // the rows are [A0, A1, J] / (pi k^2): limb-darkening weights
+    const float om = __fsub_rn(__fsub_rn(1.0f, u1 / 3.0f), u2 / 6.0f);
+    const float kk = fminf(kd, ts.kmax);
+    const float scale = (kk * kk) / om;
+    const float w0 = (1.0f - u1 - 2.0f * u2) * scale;
+    const float w1 = (u1 + 2.0f * u2) * scale;
+    const float w2 = u2 * scale;
+    float2 o;
+    o.x = fmaf(bas[2], w2, fmaf(bas[1], w1, bas[0] * w0));
+    o.y = fmaf(bas[5], w2, fmaf(bas[4], w1, bas[3] * w0));
+    reinterpret_cast<float2*>(slot)[lane] = o;
+  }
+
+  // _segments on the unclipped k
+  const float zsplit = fabsf(1.0f - kd);
+  const float zmax = 1.0f + kd;
+  const float c =
+      fminf(fmaxf(ts.slope * zsplit, ts.floor_), (zmax - zsplit) / 2.0f);
+  const float zmid = zsplit + c;
+  k.slot = slot;
+  k.zsplit = zsplit;
+  k.zmid = zmid;
+  k.invA = 1.0f / fmaxf(zsplit, 1e-6f);
+  k.invB1 = 1.0f / fmaxf(c, 1e-6f);
+  k.invB2 = 1.0f / fmaxf(zmax - zmid, 1e-6f);
+  const float zm = k.zmid + 1.0f / k.invB2;
+  k.zmax2 = zm * zm;
+}
+
+// The v2 schedule with the coefficients computed in the kernel: persistent
+// blocks, each staging the table once; warp w of the grid takes draws w,
+// w + (warps in the grid), ... At most 64 registers a thread at two blocks
+// per SM.
+template <class Src, int S>
+__global__ void __launch_bounds__(TAB_THREADS, TAB_MIN_BLOCKS)
+chi2_kernel_tab(Src src_all, TabArgs p, int C, int n_t, Nodes nodes,
+                const __grid_constant__ TabSegs ts) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* slot = smem + tab_floats(ts.n_rows) + warp * TAB_SLOT;
+  stage_table(smem, p.tab, 4u * tab_floats(ts.n_rows));
+
+  for (int c = blockIdx.x * TAB_WARPS + warp; c < C;
+       c += gridDim.x * TAB_WARPS) {
+    const int64_t row = (int64_t)(c / p.Cb) * n_t;   // the draw's target
+    const Src src = src_all.target(row);
+    SharedCoeffs k;
+    tab_coeffs(smem, ts, __ldg(p.k + c), __ldg(p.u1 + c), __ldg(p.u2 + c),
+               lane, slot, k);
+    __syncwarp();
+    const float gc = __ldg(p.g + c);
+    const typename Src::Draw d = src.draw(c);
+    const float acc =
+        draw_chi2<Src, S>(src, d, k, gc, p.obs + row, n_t, nodes, lane);
+    if (lane == 0) p.out[c] = acc;
+    __syncwarp();   // every lane is done with the slot
+  }
+}
+
+// tab_coeffs alone over C draws into out (C, TAB_OUT): the 54
+// coefficients (A, B1, B2 rows of M_CHEB) and zsplit, zmid, invA, invB1,
+// invB2; the same blocks, staging and slots as chi2_kernel_tab.
+__global__ void __launch_bounds__(TAB_THREADS)
+coeffs_tab_kernel(const float* kd, const float* u1, const float* u2,
+                  const float* tab, float* out, int C,
+                  const __grid_constant__ TabSegs ts) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* slot = smem + tab_floats(ts.n_rows) + warp * TAB_SLOT;
+  stage_table(smem, tab, 4u * tab_floats(ts.n_rows));
+
+  for (int c = blockIdx.x * TAB_WARPS + warp; c < C;
+       c += gridDim.x * TAB_WARPS) {
+    SharedCoeffs k;
+    tab_coeffs(smem, ts, kd[c], u1[c], u2[c], lane, slot, k);
+    __syncwarp();
+    float* o = out + (int64_t)c * TAB_OUT;
+    for (int i = lane; i < 3 * M_CHEB; i += 32) o[i] = slot[i];
+    if (lane == 0) {
+      o[3 * M_CHEB] = k.zsplit;
+      o[3 * M_CHEB + 1] = k.zmid;
+      o[3 * M_CHEB + 2] = k.invA;
+      o[3 * M_CHEB + 3] = k.invB1;
+      o[3 * M_CHEB + 4] = k.invB2;
+    }
+    __syncwarp();
+  }
 }
 
 Nodes make_nodes(const float* offs, const float* wgts, int n_nodes) {
@@ -538,6 +845,128 @@ int launch_orbit(const float* time, const float* P, const float* aR,
                     offs, wgts, n_nodes, stream);
 }
 
+// chi2_kernel_tab's instances (the projected source at one node, the
+// Taylor source at 1..4 nodes) and coeffs_tab_kernel.
+constexpr int TAB_KERNELS = 6;
+constexpr int TAB_COEFFS_KERNEL = TAB_KERNELS - 1;
+constexpr int MAX_DEVICES = 64;
+
+const void* tab_kernel(int i) {
+  switch (i) {
+    case 0: return (const void*)chi2_kernel_tab<OrbitSource<true>, 1>;
+    case 1: return (const void*)chi2_kernel_tab<OrbitSource<false>, 1>;
+    case 2: return (const void*)chi2_kernel_tab<OrbitSource<false>, 2>;
+    case 3: return (const void*)chi2_kernel_tab<OrbitSource<false>, 3>;
+    case 4: return (const void*)chi2_kernel_tab<OrbitSource<false>, 4>;
+    default: return (const void*)coeffs_tab_kernel;
+  }
+}
+
+// The instance of chi2_kernel_tab for a source and node count.
+int tab_index(bool projected, int n_nodes) {
+  return projected ? 0 : n_nodes;
+}
+
+struct TabSetup {
+  int smem = 0;                   // dynamic shared memory a block, bytes
+  int sms = 0;                    // the device's SMs
+  int blocks[TAB_KERNELS] = {};   // resident blocks per SM, per instance
+};
+
+// Opt every instance into the dynamic shared memory of a table of n_rows
+// rows (above the 48 KB default) and read how many of its blocks fit on an
+// SM: once per device and table size, before the first launch. Returns a
+// CUDA error code, 0 on success.
+int tab_setup(int n_rows, const TabSetup** out) {
+  static TabSetup setups[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  const int smem = tab_smem_bytes(n_rows);
+  if (setups[dev].smem != smem) {
+    TabSetup su;
+    err = cudaDeviceGetAttribute(&su.sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    for (int i = 0; i < TAB_KERNELS; ++i) {
+      err = cudaFuncSetAttribute(tab_kernel(i),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &su.blocks[i], tab_kernel(i), TAB_THREADS, smem);
+      if (err != cudaSuccess) return (int)err;
+      if (su.blocks[i] < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+    su.smem = smem;
+    setups[dev] = su;
+  }
+  *out = &setups[dev];
+  return 0;
+}
+
+bool tab_segs_ok(const TabSegs& ts) {
+  if (ts.n_rows < 1 || (4 * tab_floats(ts.n_rows)) % 16) return false;
+  for (int g = 0; g < TAB_SEGS; ++g) {
+    if (ts.kind[g] < 0 || ts.kind[g] > 3 || ts.deg[g] < 1 ||
+        ts.row0[g] < 0 || ts.row0[g] + ts.deg[g] > ts.n_rows)
+      return false;
+  }
+  return true;
+}
+
+// Blocks of a persistent launch of instance i over C draws: as many as fit
+// on the device at once, no more than the draws' warps.
+int tab_grid(const TabSetup& su, int i, int C) {
+  return std::min(su.sms * su.blocks[i], (C + TAB_WARPS - 1) / TAB_WARPS);
+}
+
+template <class Src, int S>
+void launch_tab_nodes(const TabSetup& su, const Src& src, const TabArgs& p,
+                      int C, int n_t, const Nodes& nodes, const TabSegs& ts,
+                      cudaStream_t st) {
+  chi2_kernel_tab<Src, S>
+      <<<tab_grid(su, tab_index(Src::kOneNode, S), C), TAB_THREADS, su.smem,
+         st>>>(src, p, C, n_t, nodes, ts);
+}
+
+// Launch chi2_kernel_tab over Src with S = n_nodes (1..4; the projected
+// source has one node only). Returns a CUDA error code, 0 on success.
+template <class Src>
+int launch_tab(const Src& src, const TabArgs& p, int C, int n_t,
+               const float* offs, const float* wgts, int n_nodes,
+               const TabSegs& ts, void* stream) {
+  if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
+    return (int)cudaErrorInvalidValue;
+  if (C <= 0 || p.Cb <= 0 || C % p.Cb || !tab_segs_ok(ts))
+    return (int)cudaErrorInvalidValue;
+  const TabSetup* su = nullptr;
+  const int err = tab_setup(ts.n_rows, &su);
+  if (err) return err;
+  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (Src::kOneNode) {
+    launch_tab_nodes<Src, 1>(*su, src, p, C, n_t, nodes, ts, st);
+  } else {
+    switch (n_nodes) {
+      case 1:
+        launch_tab_nodes<Src, 1>(*su, src, p, C, n_t, nodes, ts, st);
+        break;
+      case 2:
+        launch_tab_nodes<Src, 2>(*su, src, p, C, n_t, nodes, ts, st);
+        break;
+      case 3:
+        launch_tab_nodes<Src, 3>(*su, src, p, C, n_t, nodes, ts, st);
+        break;
+      default:
+        launch_tab_nodes<Src, 4>(*su, src, p, C, n_t, nodes, ts, st);
+        break;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Pointers are device pointers
@@ -591,4 +1020,68 @@ extern "C" int chi2_from_orbit_v3_launch(
   return launch_orbit<true>(time, P, aR, inc, e, w,
                       Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}, C, n_t,
                       offs, wgts, n_nodes, projected, stream);
+}
+
+
+// v2 with the coefficients computed in the kernel (chi2_kernel_tab), for
+// B = C / Cb targets: time and obs (B, n_t); P, aR, inc, e, w, k, u1, u2, g
+// (C,), target-major; tab the (n_rows, 162) coefficient table, 16-byte
+// aligned; segs a host TabSegs. projected != 0 selects projected_z and
+// needs n_nodes == 1.
+extern "C" int chi2_from_orbit_tab_launch(
+    const float* time, const float* P, const float* aR, const float* inc,
+    const float* e, const float* w, const float* k, const float* u1,
+    const float* u2, const float* g, const float* obs, const float* tab,
+    float* out, int C, int n_t, const float* offs, const float* wgts,
+    int n_nodes, int projected, int Cb, const void* segs, void* stream) {
+  const TabSegs& ts = *static_cast<const TabSegs*>(segs);
+  const TabArgs p{k, u1, u2, g, obs, tab, out, Cb};
+  if (projected)
+    return launch_tab(OrbitSource<true>{time, P, aR, inc, e, w}, p, C, n_t,
+                      offs, wgts, n_nodes, ts, stream);
+  return launch_tab(OrbitSource<false>{time, P, aR, inc, e, w}, p, C, n_t,
+                    offs, wgts, n_nodes, ts, stream);
+}
+
+// chi2_kernel_tab's coefficient stage alone (coeffs_tab_kernel): out
+// (C, 59) from k, u1, u2 (C,), the same arguments otherwise. For checking
+// the in-kernel coefficients; the chi^2 path never calls it.
+extern "C" int deficit_coeffs_tab_launch(const float* k, const float* u1,
+                                         const float* u2, const float* tab,
+                                         float* out, int C, const void* segs,
+                                         void* stream) {
+  const TabSegs& ts = *static_cast<const TabSegs*>(segs);
+  if (C <= 0 || !tab_segs_ok(ts)) return (int)cudaErrorInvalidValue;
+  const TabSetup* su = nullptr;
+  const int err = tab_setup(ts.n_rows, &su);
+  if (err) return err;
+  coeffs_tab_kernel<<<tab_grid(*su, TAB_COEFFS_KERNEL, C), TAB_THREADS,
+                      su->smem, (cudaStream_t)stream>>>(k, u1, u2, tab, out,
+                                                        C, ts);
+  return (int)cudaGetLastError();
+}
+
+// What the compiler and the occupancy calculator give chi2_kernel_tab's
+// instance for n_nodes and projected at a table of n_rows rows: out[0]
+// registers a thread, out[1] local memory bytes a thread (spills), out[2]
+// resident blocks per SM, out[3] threads a block, out[4] dynamic shared
+// memory bytes a block, out[5] the device's SMs.
+extern "C" int chi2_from_orbit_tab_info(int n_nodes, int projected,
+                                        int n_rows, int* out) {
+  if (n_nodes < 1 || n_nodes > MAX_NODES || (projected && n_nodes != 1))
+    return (int)cudaErrorInvalidValue;
+  const TabSetup* su = nullptr;
+  const int err = tab_setup(n_rows, &su);
+  if (err) return err;
+  const int i = tab_index(projected != 0, n_nodes);
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, tab_kernel(i));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = su->blocks[i];
+  out[3] = TAB_THREADS;
+  out[4] = su->smem;
+  out[5] = su->sms;
+  return 0;
 }

@@ -11,19 +11,29 @@ comes from:
 * ``chi2_supersampled`` / ``chi2_supersampled_v3`` read it from four
   (C, n_t) planes q0, q1, q2, front (the TPU kernels' contract);
 * ``chi2_from_orbit`` / ``chi2_from_orbit_v3`` compute it inside the
-  kernel from each draw's orbit and the exposure times (the main path:
-  ``ops/lightcurve.py::_chi2_fused``), so no (C, n_t) tensor is made.
-  They take B targets in one launch, the counterpart of ``jax.vmap`` over
-  the Pallas call: time and obs_dev (B, n_t), the draws target-major, Cb
-  = C / B per target, a multiple of the schedule's draw tile.
+  kernel from each draw's orbit and the exposure times, so no (C, n_t)
+  tensor is made. They take B targets in one launch, the counterpart of
+  ``jax.vmap`` over the Pallas call: time and obs_dev (B, n_t), the draws
+  target-major, Cb = C / B per target, a multiple of the schedule's draw
+  tile.
+
+The v2 schedule has a third orbit entry point, ``chi2_from_orbit_tab``
+(the main path on the card: ``ops/lightcurve.py::_chi2_fused``), which
+takes each draw's (k, u1, u2) instead of its deficit coefficients and
+computes ``fastcore.cheb_deficit_coeffs_tab`` inside the kernel from a
+shared-memory copy of the coefficient table, as the JAX package's
+``_chi2_pallas`` does in one call. ``deficit_coeffs_tab`` runs that
+in-kernel coefficient stage alone, to check it; no path calls it.
 
 On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
 plain torch version (``chi2_supersampled_plain``,
-``chi2_from_orbit_plain``). There is no fallback between them.
+``chi2_from_orbit_plain``, ``chi2_from_orbit_tab_plain``,
+``fastcore.cheb_deficit_coeffs_tab``). There is no fallback between them.
 
-``launches``, ``launches_v3``, ``launches_orbit`` and ``launches_orbit_v3``
-count kernel launches (not plain-path calls), so a run can show which
-kernel its main path went through.
+``launches``, ``launches_v3``, ``launches_orbit``, ``launches_orbit_v3``,
+``launches_orbit_tab`` and ``launches_coeffs_tab`` count kernel launches
+(not plain-path calls), so a run can show which kernel its main path went
+through.
 """
 
 from __future__ import annotations
@@ -32,12 +42,17 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 
 import torch
 
 from ..core.kepler import projected_z
-from .fastcore import M_CHEB, cheb_deficit_eval, exposure_z2_poly
+from ..tables import load_tables
+from .fastcore import (
+    M_CHEB, TAB_SEGMENTS, _BREAK_FLOOR, _BREAK_SLOPE, _TAB_BREAKS, _TAB_DEGS,
+    cheb_deficit_coeffs_tab, cheb_deficit_eval, exposure_z2_poly,
+)
 
 DRAW_TILE = 256     # v2: C % DRAW_TILE == 0
 DRAW_LANES = 128    # v3: C % DRAW_LANES == 0
@@ -47,6 +62,8 @@ launches = 0
 launches_v3 = 0
 launches_orbit = 0
 launches_orbit_v3 = 0
+launches_orbit_tab = 0
+launches_coeffs_tab = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("chi2_supersampled.cu",)
@@ -56,6 +73,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-prec-sqrt=true", "-prec-div=true", "-ftz=false")
 
 _lib = None
+
+
+class TabSegs(ctypes.Structure):
+    """The coefficient table's k-segments as ``chi2_kernel_tab`` reads them
+    (``csrc/chi2_supersampled.cu::TabSegs``)."""
+    _fields_ = [("lo", ctypes.c_float * 8), ("shift", ctypes.c_float * 8),
+                ("den", ctypes.c_float * 8), ("kind", ctypes.c_int * 8),
+                ("deg", ctypes.c_int * 8), ("row0", ctypes.c_int * 8),
+                ("kmin", ctypes.c_float), ("kmax", ctypes.c_float),
+                ("slope", ctypes.c_float), ("floor", ctypes.c_float),
+                ("n_rows", ctypes.c_int)]
+
+
+@lru_cache(maxsize=None)
+def _tab_segs():
+    """The TabSegs of ``fastcore.TAB_SEGMENTS``: each Python float rounded
+    to float32 (ctypes rounds to nearest, as torch rounds a Python float
+    that meets a float32 tensor)."""
+    degs = [int(d) for d in _TAB_DEGS]
+    row0 = [sum(degs[:g]) for g in range(len(degs))]
+    lo, _, kind, shift, den = zip(*TAB_SEGMENTS)
+    return TabSegs(
+        (ctypes.c_float * 8)(*lo), (ctypes.c_float * 8)(*shift),
+        (ctypes.c_float * 8)(*den), (ctypes.c_int * 8)(*kind),
+        (ctypes.c_int * 8)(*degs), (ctypes.c_int * 8)(*row0),
+        float(_TAB_BREAKS[0]), float(_TAB_BREAKS[-1]), _BREAK_SLOPE,
+        _BREAK_FLOOR, sum(degs))
 
 
 def _nvcc() -> str:
@@ -106,6 +150,18 @@ def _load():
             fn.argtypes = ([ctypes.c_void_p] * 13 + tail
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        lib.chi2_from_orbit_tab_launch.argtypes = (
+            [ctypes.c_void_p] * 13 + tail
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        lib.deficit_coeffs_tab_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p])
+        lib.chi2_from_orbit_tab_info.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        for fn in (lib.chi2_from_orbit_tab_launch,
+                   lib.deficit_coeffs_tab_launch,
+                   lib.chi2_from_orbit_tab_info):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -148,10 +204,10 @@ def _check(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, offs, wgts,
                        front=(C, n_t), **_coeff_shapes(C, n_t)), offs, wgts)
 
 
-def _check_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
-                 offs, wgts, ns, tile):
-    """The orbit entry points' checks; returns Cb, the draws per target.
-    time (n_t,) is one target, time (B, n_t) B targets."""
+def _orbit_layout(time, P, tile):
+    """(C, n_t, B, Cb) of an orbit entry point's draws: time (n_t,) is one
+    target, time (B, n_t) B targets of Cb = C / B draws, a multiple of
+    ``tile``."""
     if time.dim() not in (1, 2) or P.dim() != 1:
         raise ValueError(f"time must be (n_t,) or (B, n_t) and P 1-d, got "
                          f"{tuple(time.shape)} and {tuple(P.shape)}")
@@ -163,14 +219,44 @@ def _check_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
     if Cb % tile:
         raise ValueError(f"draws per target {Cb} (chunk {C}, B = {B}) must "
                          f"be a multiple of {tile}")
+    return C, n_t, B, Cb
+
+
+def _check_ns(ns, offs, wgts):
+    if ns < 1 or (ns == 1 and (offs, wgts) != ((0.0,), (1.0,))):
+        raise ValueError(f"ns = {ns}: ns = 1 takes the one node offs = (0,), "
+                         f"wgts = (1,), got {offs} and {wgts}")
+
+
+def _check_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
+                 offs, wgts, ns, tile):
+    """The orbit entry points' checks; returns Cb, the draws per target.
+    time (n_t,) is one target, time (B, n_t) B targets."""
+    C, n_t, B, Cb = _orbit_layout(time, P, tile)
     _check_arrays(dict(time=time, P=P, a_R=a_R, inc=inc, e=e, w=w, cA=cA,
                        cB1=cB1, cB2=cB2, seg=seg, g=g, obs_dev=obs_dev),
                   dict(time=tuple(time.shape), P=(C,), a_R=(C,), inc=(C,),
                        e=(C,), w=(C,), **_coeff_shapes(C, n_t, B)), offs,
                   wgts)
-    if ns < 1 or (ns == 1 and (offs, wgts) != ((0.0,), (1.0,))):
-        raise ValueError(f"ns = {ns}: ns = 1 takes the one node offs = (0,), "
-                         f"wgts = (1,), got {offs} and {wgts}")
+    _check_ns(ns, offs, wgts)
+    return Cb
+
+
+_TAB_DRAW_ARGS = ("P", "a_R", "inc", "e", "w", "k", "u1", "u2", "g")
+
+
+def _check_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, offs,
+                     wgts, ns):
+    """``chi2_from_orbit_tab``'s checks, those of ``_check_orbit`` with
+    (k, u1, u2, g) (C,) in place of the coefficients; returns Cb."""
+    C, n_t, B, Cb = _orbit_layout(time, P, DRAW_TILE)
+    draws = (P, a_R, inc, e, w, k, u1, u2, g)
+    _check_arrays(dict(time=time, **dict(zip(_TAB_DRAW_ARGS, draws)),
+                       obs_dev=obs_dev),
+                  dict(time=tuple(time.shape),
+                       **{n: (C,) for n in _TAB_DRAW_ARGS},
+                       obs_dev=(B, n_t)), offs, wgts)
+    _check_ns(ns, offs, wgts)
     return Cb
 
 
@@ -371,3 +457,106 @@ def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
                   offs, wgts, int(ns == 1), Cb)
     launches_orbit_v3 += 1
     return out
+
+
+def _device_table(device):
+    """The (sum_degs, 162) float32 coefficient table on ``device``, as
+    ``chi2_kernel_tab`` copies it into shared memory: contiguous and 16-byte
+    aligned."""
+    tab = load_tables(device, torch.float32)["tab_C"]
+    if not tab.is_contiguous() or tab.data_ptr() % 16:
+        raise ValueError("the coefficient table must be contiguous and "
+                         "16-byte aligned")
+    return tab
+
+
+def chi2_from_orbit_tab_plain(time, P, a_R, inc, e, w, k, u1, u2, g,
+                              obs_dev, *, offs, wgts, ns):
+    """Plain torch version of the tab kernel (any device): the tabulated
+    coefficients of ``fastcore.cheb_deficit_coeffs_tab``, then
+    ``chi2_from_orbit_plain``."""
+    cA, cB1, cB2, *segs = cheb_deficit_coeffs_tab(k, u1, u2)
+    return chi2_from_orbit_plain(
+        time, P, a_R, inc, e, w, cA.contiguous(), cB1.contiguous(),
+        cB2.contiguous(), torch.stack(segs, 1), g[:, None], obs_dev,
+        offs=offs, wgts=wgts, ns=ns)
+
+
+def chi2_from_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, *,
+                        offs, wgts, ns):
+    """chi^2 (unnormalized by sigma) for one draw chunk, v2 schedule, with
+    the exposure z^2 model and the tabulated deficit coefficients
+    (``fastcore.cheb_deficit_coeffs_tab``) computed inside the kernel.
+
+    Args (all float32, contiguous, on one device): as ``chi2_from_orbit``,
+    with each draw's radius ratio and limb darkening k, u1, u2 (C,) in
+    place of cA, cB1, cB2 and seg, and g (C,).
+    Returns:
+        (C,) sum of squared residuals (divide by sigma^2 outside).
+    Cb must be a multiple of 256. A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel, once for all B targets, and a draw's
+    result is the same whatever else the launch holds.
+    """
+    global launches_orbit_tab
+    offs, wgts = _nodes(offs, wgts)
+    args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
+    Cb = _check_orbit_tab(*args, offs, wgts, ns)
+    if not _device_path(P):
+        return chi2_from_orbit_tab_plain(*args, offs=offs, wgts=wgts, ns=ns)
+    segs = _tab_segs()
+    out = _launch("chi2_from_orbit_tab", (*args, _device_table(P.device)),
+                  P.shape[0], time.shape[-1], offs, wgts, int(ns == 1), Cb,
+                  ctypes.addressof(segs))
+    launches_orbit_tab += 1
+    return out
+
+
+def deficit_coeffs_tab(k, u1, u2):
+    """``fastcore.cheb_deficit_coeffs_tab`` (same arguments and outputs) as
+    ``chi2_from_orbit_tab`` computes it: on a CUDA tensor the kernel's own
+    coefficient function over the draws (``deficit_coeffs_tab_launch``),
+    on a CPU tensor the torch version. For checking the in-kernel
+    coefficients; no path calls it."""
+    global launches_coeffs_tab
+    if k.dim() != 1 or k.shape[0] < 1:
+        raise ValueError(f"k must be (C,) with C >= 1, got {tuple(k.shape)}")
+    C = k.shape[0]
+    _check_arrays(dict(k=k, u1=u1, u2=u2), dict(k=(C,), u1=(C,), u2=(C,)),
+                  (0.0,), (1.0,))
+    if not _device_path(k):
+        return cheb_deficit_coeffs_tab(k, u1, u2)
+    lib = _load()
+    out = torch.empty((C, 3 * M_CHEB + 5), dtype=torch.float32,
+                      device=k.device)
+    segs = _tab_segs()
+    with torch.cuda.device(k.device):
+        err = lib.deficit_coeffs_tab_launch(
+            k.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            _device_table(k.device).data_ptr(), out.data_ptr(), C,
+            ctypes.addressof(segs), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deficit_coeffs_tab kernel launch failed: "
+                           f"cudaError {err}")
+    launches_coeffs_tab += 1
+    m = M_CHEB
+    return (out[:, :m], out[:, m:2 * m], out[:, 2 * m:3 * m],
+            *out[:, 3 * m:].unbind(1))
+
+
+def tab_kernel_info(ns, n_nodes, device="cuda"):
+    """What the compiler and the occupancy calculator give the tab kernel's
+    instance for ``ns`` and ``n_nodes`` on ``device``: registers and local
+    memory bytes (spills) a thread, resident blocks and warps per SM,
+    threads and dynamic shared memory bytes a block, and the SMs."""
+    lib = _load()
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(torch.device(device)):
+        err = lib.chi2_from_orbit_tab_info(n_nodes, int(ns == 1),
+                                           _tab_segs().n_rows, out)
+    if err != 0:
+        raise RuntimeError(f"chi2_from_orbit_tab_info failed: cudaError "
+                           f"{err}")
+    regs, local, blocks, threads, smem, sms = out
+    return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32, threads=threads,
+                smem_bytes=smem, sms=sms)

@@ -39,6 +39,21 @@ _TAB_BREAKS, _TAB_KINDS, _TAB_DEGS, _ = cheb_k_tables()
 _TAB_MAXDEG = int(_TAB_DEGS.max())
 
 
+def _tab_segment_map(g):
+    """(lo, hi, kind, shift, den) of k-segment g as Python floats: its
+    mapped variable is t = (kc - shift) / den (kind 0), (log kc - shift) /
+    den (kind 1), 1 - sqrt(max(shift - kc, 0) / den) (kind 2) or
+    sqrt(max(kc - shift, 0) / den) (kind 3)."""
+    lo, hi = float(_TAB_BREAKS[g]), float(_TAB_BREAKS[g + 1])
+    kind = int(_TAB_KINDS[g])
+    if kind == 1:
+        return lo, hi, kind, math.log(lo), math.log(hi) - math.log(lo)
+    return lo, hi, kind, hi if kind == 2 else lo, hi - lo
+
+
+TAB_SEGMENTS = tuple(_tab_segment_map(g) for g in range(8))
+
+
 def _segments(k):
     """(zsplit, zmid, 1/wA, 1/wB1, 1/wB2) of the three z-segments, each
     (N, 1). The width floors keep a k = 0 lane finite."""
@@ -82,17 +97,15 @@ def _tab_kappa_onehot(kc):
     kappa = torch.zeros_like(kc)
     actives = []
     logk = torch.log(kc)
-    for g in range(8):
-        lo, hi = float(_TAB_BREAKS[g]), float(_TAB_BREAKS[g + 1])
-        kind = int(_TAB_KINDS[g])
+    for g, (lo, hi, kind, shift, den) in enumerate(TAB_SEGMENTS):
         if kind == 0:
-            t = (kc - lo) / (hi - lo)
+            t = (kc - shift) / den
         elif kind == 1:
-            t = (logk - math.log(lo)) / (math.log(hi) - math.log(lo))
+            t = (logk - shift) / den
         elif kind == 2:   # sqrt-resolved toward hi
-            t = 1.0 - torch.sqrt(torch.clamp_min(hi - kc, 0.0) / (hi - lo))
+            t = 1.0 - torch.sqrt(torch.clamp_min(shift - kc, 0.0) / den)
         else:             # sqrt-resolved toward lo
-            t = torch.sqrt(torch.clamp_min(kc - lo, 0.0) / (hi - lo))
+            t = torch.sqrt(torch.clamp_min(kc - shift, 0.0) / den)
         active = (kc >= lo) & ((kc <= hi) if g == 7 else (kc < hi))
         kap = torch.clamp(2.0 * t - 1.0, -1.0, 1.0)
         kappa = torch.where(active, kap, kappa)
@@ -132,17 +145,22 @@ def cheb_deficit_coeffs_tab(k, u1, u2):
             zmid[:, 0], 1.0 / wA[:, 0], 1.0 / wB1[:, 0], 1.0 / wB2[:, 0])
 
 
+def uses_tab(backend, *dtypes):
+    """Whether ``deficit_coeffs`` takes the tabulated coefficients under
+    ``backend`` (a ``COEFFS_BACKEND`` value) for inputs of ``dtypes``:
+    "tab" always, "exact" never, "auto" unless one is float64."""
+    if backend in ("exact", "tab"):
+        return backend == "tab"
+    return torch.float64 not in dtypes
+
+
 def deficit_coeffs(k, u1, u2):
     """Tabulated coefficients for float32 (device) inputs, exact kernel
     nodes for float64 (reference) inputs; ``COEFFS_BACKEND`` "exact" or
     "tab" forces one whatever the dtype."""
-    if COEFFS_BACKEND == "exact":
-        return cheb_deficit_coeffs(k, u1, u2)
-    if COEFFS_BACKEND == "tab":
+    if uses_tab(COEFFS_BACKEND, k.dtype, u1.dtype, u2.dtype):
         return cheb_deficit_coeffs_tab(k, u1, u2)
-    if torch.float64 in (k.dtype, u1.dtype, u2.dtype):
-        return cheb_deficit_coeffs(k, u1, u2)
-    return cheb_deficit_coeffs_tab(k, u1, u2)
+    return cheb_deficit_coeffs(k, u1, u2)
 
 
 def _clenshaw_select3(cA, cB1, cB2, in_B1, in_B2, x):

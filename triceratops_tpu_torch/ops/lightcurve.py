@@ -11,12 +11,15 @@ obs_dev + g * deficit, with obs_dev = flux - 1 formed on the host in f64.
 Paths per call:
 
 * ``backend="auto"`` (default, fast): the fused chi^2 of
-  ``ops/chi2_core.py`` straight from the tabulated coefficients and each
-  draw's orbit (``chi2_from_orbit``): on a CUDA tensor a hand-written
-  kernel that computes the exposure z^2 model per point itself, in draw
-  chunks of up to 2^20 (``orbit_chunk``); on a CPU tensor its plain torch
-  version, in ``draw_chunk``'s chunks. ``CHI2_SCHEDULE`` picks the kernel: the
-  v2 schedule (default) or, with ``TRICERATOPS_PALLAS_V=3`` in the
+  ``ops/chi2_core.py`` straight from each draw's parameters and orbit. On
+  a CUDA tensor a hand-written kernel computes the exposure z^2 model per
+  point itself, in draw chunks of up to 2^20 (``orbit_chunk``); under the
+  v2 schedule with tabulated coefficients it also computes the
+  coefficients (``chi2_from_orbit_tab``; ``tab_in_kernel``), otherwise
+  the torch coefficient stage feeds it. On a CPU tensor the torch
+  coefficient stage feeds the kernel's plain torch version, in
+  ``draw_chunk``'s chunks. ``CHI2_SCHEDULE`` picks the kernel: the v2
+  schedule (default) or, with ``TRICERATOPS_PALLAS_V=3`` in the
   environment when this module is imported, the v3 one.
 * ``backend="torch"``: the unfused plain-torch fast path
   (``_mean_deficit_fast``), which materializes the deficit.
@@ -46,7 +49,7 @@ import torch
 
 from ..core.kepler import projected_z
 from ..core.numerics import full_precision_matmul
-from . import chi2_core
+from . import chi2_core, fastcore
 from .fastcore import (
     deficit_coeffs, cheb_deficit_eval, exposure_z2_poly, z_supersampled,
 )
@@ -70,10 +73,11 @@ ORBIT_CHUNK_MAX = 1 << 20
 
 # Most draws one orbit-kernel launch of a batched core takes: whole targets
 # (one chunk each) go to one launch while their padded draws fit. Set from
-# memory, not speed: the coefficient stage holds (C, 152) and (C, 162) f32
-# products per launch, ~1.3 KB a draw; at 2^23 (8 targets of 1000192) an
-# 8-target batch call peaks at 14.2 GiB on the card, and twice the draws
-# would take the stage alone past 20 GiB (PERF.md)
+# memory, not speed: the torch coefficient stage (the CPU route,
+# TRICERATOPS_COEFFS=exact and the v3 schedule) holds (C, 152) and
+# (C, 162) f32 products per launch, ~1.3 KB a draw, which at 2^23 (8
+# targets of 1000192) took an 8-target batch call to 14.2 GiB on the card
+# (PERF.md); chi2_from_orbit_tab makes neither
 DRAW_CAP = 1 << 23
 
 _GL_EXPO_MAX = 4
@@ -172,28 +176,49 @@ def _mean_deficit(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns,
     return fn(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns)
 
 
+def tab_in_kernel(device, dtype, coeffs_backend, schedule):
+    """Whether ``_chi2_fused`` calls ``chi2_core.chi2_from_orbit_tab``,
+    which computes the tabulated coefficients in the kernel, for draws of
+    ``dtype`` on ``device`` under a ``fastcore.COEFFS_BACKEND`` value and a
+    ``CHI2_SCHEDULE``: on a CUDA device under the v2 schedule when the
+    coefficients are tabulated (``fastcore.uses_tab``). Otherwise the
+    torch coefficient stage feeds the schedule's orbit entry point,
+    ``chi2_from_orbit`` or ``chi2_from_orbit_v3`` (on a CPU device its
+    plain version). Settings, not fallbacks: nothing tries one route and
+    takes another."""
+    return (torch.device(device).type == "cuda" and schedule != "3"
+            and fastcore.uses_tab(coeffs_backend, dtype))
+
+
 def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
                 n_t, ns):
-    """chi^2 of one chunk straight from per-draw parameters through
+    """chi^2 of one chunk straight from per-draw parameters (a kernel on
+    CUDA, the plain version on CPU): ``chi2_core.chi2_from_orbit_tab``
+    where ``tab_in_kernel`` says so, else the torch coefficient stage into
     ``chi2_core.chi2_from_orbit`` or, under ``CHI2_SCHEDULE == "3"``,
-    ``chi2_core.chi2_from_orbit_v3`` (a kernel on CUDA, the plain version
-    on CPU): GL exposure nodes and the Taylor z^2 model for ns > 1, the
-    exact projected separation at one node for ns = 1. time and obs_dev
-    are (n_t,) for one target or (B, n_t), the draws then B equal
-    target-major blocks."""
-    cA, cB1, cB2, zsplit, zmid, invA, invB1, invB2 = deficit_coeffs(k, u1, u2)
+    ``chi2_core.chi2_from_orbit_v3``. GL exposure nodes and the Taylor z^2
+    model for ns > 1, the exact projected separation at one node for ns =
+    1. time and obs_dev are (n_t,) for one target or (B, n_t), the draws
+    then B equal target-major blocks."""
     if ns > 1:
         offs, wgt = _gl_exposure_nodes(exptime, ns)
     else:
         offs, wgt = np.zeros(1, np.float32), np.ones(1, np.float32)
+    dtype = torch.promote_types(torch.promote_types(k.dtype, u1.dtype),
+                                u2.dtype)
+    orbit = [x.contiguous() for x in (time, P, a_R, inc, e, w)]
+    obs = obs_dev.reshape(-1, time.shape[-1]).contiguous()
+    if tab_in_kernel(time.device, dtype, fastcore.COEFFS_BACKEND,
+                     CHI2_SCHEDULE):
+        return chi2_core.chi2_from_orbit_tab(
+            *orbit, *(x.contiguous() for x in (k, u1, u2, g)), obs,
+            offs=offs, wgts=wgt, ns=ns)
+    cA, cB1, cB2, zsplit, zmid, invA, invB1, invB2 = deficit_coeffs(k, u1, u2)
     seg = torch.stack([zsplit, zmid, invA, invB1, invB2], dim=1)
     fn = (chi2_core.chi2_from_orbit_v3 if CHI2_SCHEDULE == "3"
           else chi2_core.chi2_from_orbit)
-    return fn(*(x.contiguous() for x in (time, P, a_R, inc, e, w, cA, cB1,
-                                         cB2)),
-              seg, g[:, None].contiguous(),
-              obs_dev.reshape(-1, time.shape[-1]).contiguous(), offs=offs,
-              wgts=wgt, ns=ns)
+    return fn(*orbit, cA.contiguous(), cB1.contiguous(), cB2.contiguous(),
+              seg, g[:, None].contiguous(), obs, offs=offs, wgts=wgt, ns=ns)
 
 
 def _targets(time, obs_dev, sigma, n_draws):
