@@ -4,8 +4,8 @@ Drives the port's main path once at full size and checks it:
 
   1. requires CUDA and prints the card's name and power limit;
   2. builds the chi^2 kernels (v2 and v3 schedules, each over z^2 planes
-     and over the orbit, and the v2 orbit instance that computes its
-     deficit coefficients itself; one source) from csrc/ with nvcc and
+     and over the orbit, and each schedule's orbit instance that computes
+     its deficit coefficients itself; one source) from csrc/ with nvcc and
      prints the build time and the compiler's register report; then, with
      torch.set_float32_matmul_precision("high"), computes the tabulated
      deficit coefficients of 1e5 seeded draws across all eight k-segments
@@ -15,17 +15,22 @@ Drives the port's main path once at full size and checks it:
      lifted the same call misses 3e-6; and holds the tab kernel's own
      coefficient function (chi2_core.deficit_coeffs_tab) on the same draws
      to the CPU path within 3e-6;
-  3. compares each of the five kernels with its plain torch version on the
+  3. compares each of the six kernels with its plain torch version on the
      card at the main path's shape (n_t = 100, GL-4), at long-curve shapes
      (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times them
      with CUDA events: the plane kernels at the old n_t-bound draw chunk,
      the orbit kernels at the main path's chunk (lightcurve.orbit_chunk)
      beside their yardstick, for orbit v2 / v3 exposure_z2_poly plus the
      plane kernel on the same draws (on the long curves both at the old
-     chunk, where the planes fit), for the tab kernel the torch
-     coefficient stage plus orbit v2, whose result it is also gated
-     against; prints the tab kernel's registers, local memory and
-     resident warps per SM; then the three orbit kernels with a target
+     chunk, where the planes fit), for the tab kernels the torch
+     coefficient stage plus orbit v2 / v3, whose result they are also
+     gated against; prints the tab kernels' registers, local memory and
+     resident warps per SM, and for the v3 orbit kernels, which skip the
+     solve outside each draw's transit window, both bounds (window_bound,
+     a solve inside the windows only, and a solve at every point), the
+     share of (draw, point) pairs outside their draw's window (after
+     checking that every active point lies inside it) and the tab kernel's
+     time on the same draws; then the four orbit kernels with a target
      axis, one launch over 8 targets x 1000192 draws (n_t = 100, GL-4,
      each target its own curve), against the plain version per target,
      draw for draw against one launch per target, and timed beside 8x the
@@ -43,15 +48,24 @@ Drives the port's main path once at full size and checks it:
      kernel path under TF32 (set_float32_matmul_precision("high")): per-row lnZ
      within 1e-2 of 4, and prints the same run's distance with the
      products' guard lifted;
-  v3. reruns the same seed under the v3 schedule: only the v3 orbit kernel
-     launched, per-row lnZ as in 4; then one warm v3 call;
+  v3. reruns the same seed under the v3 schedule: only the v3 tab kernel
+     launched, once per row, per-row lnZ as in 4; then one warm v3 call;
+     then the same seed under the v3 schedule and exact coefficients:
+     only orbit v3 launched, once per row, per-row lnZ within 1e-2 of 5's
+     exact run on the rows within 50 nats of the winner;
+  long. runs the 21-row call on a seeded synthetic curve of
+     bench_longlc.py's window shape (8055 points in |t| < 0.4 d, 2-min
+     exposures, 4's planet) under schedules 2 and 3 on one seed: only the
+     schedule's tab kernel launched, once per row; per-row lnZ within
+     1e-2 nats on the rows within 50 nats of the winner, the same -inf
+     rows; prints both schedules' first and warm walls;
   6. times three warm calc_probs calls with different seeds (v2);
   7. runs the four dormant nearby-star scenarios (lnZ_NTP_unknown and
      lnZ_NEB_unknown on the TRILEGAL lookalikes of a Tmag 13.2 star,
      lnZ_NTP_evolved and lnZ_NEB_evolved at R_s = 2.0) at N = 1e6 on v2,
      on the plain path and under v3, and the empty-population case; checks
-     per-row lnZ across the paths and that only the schedule's orbit
-     kernel (tab on v2) launched;
+     per-row lnZ across the paths and that only the schedule's tab kernel
+     launched;
   8. runs calc_probs_ensemble(n_runs = 3) of the 21-row call: 63 tab
      launches, FPP the mean of the runs;
   9. runs likelihoods.simulate_TP_transit_p and lnL_EB_p over 1e5
@@ -77,7 +91,7 @@ Drives the port's main path once at full size and checks it:
      F1's TP and DTP rows against the JAX package's 100-key row record
      (parity/jax_rows.json).
 
-Prints a JSON line with the five kernels' numbers, then as its last line
+Prints a JSON line with the six kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
 CUDA card, and outside a checkout of the repository.
 
@@ -126,6 +140,13 @@ FLOPS_ORBIT_DRAW = 38
 # kappa map 6 and _segments 14
 FLOPS_TAB_TERM = 2 * 162 + 2
 FLOPS_TAB_DRAW = 54 * 5 + 10 + 6 + 14
+# The v3 kernels' transit window per draw (transit_window), one operation
+# per + - * / and per sqrt, asin, sin, cos, atan2, floor or min: the
+# orbit's bounds and the model's margin 40, zeff and the arc's half width
+# 10, the spread, sqrt(1 -+ e) and the centres 6, seven eccentric
+# anomalies at 7 each plus their six arguments, four mean-anomaly arcs at
+# 10 each, the window's ends and tests 12
+FLOPS_WINDOW_DRAW = 40 + 10 + 6 + 7 * 7 + 6 + 4 * 10 + 12
 # device sleep queued before each timed call (~1 ms at the H100's clock)
 LEAD_CYCLES = 2_000_000
 # phase 7: the nearby star whose lookalikes the unknown-host rows draw, and
@@ -136,7 +157,8 @@ R_EVOLVED = 2.0
 N_LIKELIHOOD_ROWS = 100_000
 N_LIKELIHOOD_CHECK = 256
 COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
-            "launches_orbit_tab", "launches_coeffs_tab")
+            "launches_orbit_tab", "launches_orbit_v3_tab",
+            "launches_coeffs_tab")
 # phase 10: targets in the batch, the seed of their (Rp, P) rows and the
 # ranges they are drawn from [Re], [d]. At sigma = 4e-4 a planet of ~10 Re
 # or more makes the companion and background rows needles whose lnZ
@@ -156,6 +178,13 @@ GRID_TIMEOUT_S = 300
 # size)
 BATCH_PEAK_GIB = 20.0
 BATCH_VS_ONE_NATS = 1e-3
+# phase long: exposures of the synthetic long curve, its half window [d]
+# (bench_longlc.py's |t| < 0.4 d crop of TOI-1228), its seed, and how far
+# below the winner (nats) a row's lnZ is still held to 1e-2 nats
+LONG_N_T = 8055
+LONG_WINDOW = 0.4
+LONG_SEED = 12
+LONG_NEAR_NATS = 50.0
 # phase 2: draws of the coefficient check under TF32, their seed, and the
 # tolerance of the tabulated coefficients (tests/test_fastcore.py)
 N_TF32_DRAWS = 100_000
@@ -202,7 +231,7 @@ def phase_build(chi2_core):
     dt = time.perf_counter() - t0
     print(f"phase 2: built {so.name} (chi2_supersampled, "
           f"chi2_supersampled_v3, chi2_from_orbit, chi2_from_orbit_v3, "
-          f"chi2_from_orbit_tab) in {dt:.2f} s")
+          f"chi2_from_orbit_tab, chi2_from_orbit_v3_tab) in {dt:.2f} s")
     return dt
 
 
@@ -335,14 +364,14 @@ def _median_ms(torch, fn, reps=20):
     return float(np.median(times))
 
 
-def _active_points(torch, q0, q1, q2, front, seg, offs):
+def _active_mask(torch, q0, q1, q2, front, seg, offs):
     """Points in front with z < zmax at some node: the ones whose deficit
     is not ~0, which run the kernels' full per-node work."""
     zmax2 = (seg[:, 1] + 1.0 / seg[:, 4]) ** 2
     inside = torch.zeros_like(front, dtype=torch.bool)
     for d in offs:
         inside |= (q0 + q1 * d + q2 * (d * d)) < zmax2[:, None]
-    return int((inside & (front > 0)).sum())
+    return inside & (front > 0)
 
 
 def _deficit_flops(n_active, n_points, S, n_t):
@@ -367,61 +396,119 @@ def chi2_bound(torch, args, offs):
     q0, q1, q2, front, cA, cB1, cB2, seg, g, obs = args
     C, n_t = q0.shape
     nbytes = 4 * (sum(a.numel() for a in args) + C)
-    n_active = _active_points(torch, q0, q1, q2, front, seg, offs)
+    n_active = int(_active_mask(torch, q0, q1, q2, front, seg, offs).sum())
     return (*_bound(nbytes, _deficit_flops(n_active, C * n_t, len(offs),
                                            n_t)), n_active / (C * n_t))
 
 
-def _orbit_flops(torch, chi2_core, orbit, rest, offs, ns):
-    """(FP32 operations, active share) of the orbit kernels on these
-    inputs: the orbit source's work at every point and draw
-    (FLOPS_ORBIT_POINT, FLOPS_ORBIT_DRAW) plus the plane kernels' work on
-    the same z^2 model, counted on planes made a draw slice at a time."""
+def point_counts(torch, chi2_core, orbit, rest, offs, ns):
+    """What the orbit kernels' work depends on in these inputs, counted on
+    the exposure z^2 model's planes made a draw slice at a time: the
+    (draw, point) pairs, the active ones (_active_mask), the ones inside
+    their draw's transit window (chi2_core.transit_window, the v3
+    kernels' window), the active ones outside it (the window misses them:
+    must be none), and the pairs the v3 kernels solve: a warp's
+    chi2_core.V3_DRAWS draws at every point some draw's window holds."""
     t, P, aR, inc, e, w = orbit
     seg = rest[3]
     C, n_t = P.shape[0], t.shape[0]
-    step = max(256, (1 << 24) // n_t)
-    n_active = 0
+    step = max(256, (1 << 24) // n_t // 32 * 32)
+    n = dict(C=C, n_t=n_t, active=0, inside=0, missed=0, warp=0)
     for i in range(0, C, step):
         s = slice(i, i + step)
-        planes = chi2_core.orbit_planes(t, P[s], aR[s], inc[s], e[s], w[s],
-                                        ns)
-        n_active += _active_points(torch, *planes, seg[s], offs)
-    flops = (C * n_t * FLOPS_ORBIT_POINT[ns == 1] + C * FLOPS_ORBIT_DRAW
-             + _deficit_flops(n_active, C * n_t, len(offs), n_t))
-    return flops, n_active / (C * n_t)
+        active = _active_mask(torch, *chi2_core.orbit_planes(
+            t, P[s], aR[s], inc[s], e[s], w[s], ns), seg[s], offs)
+        zmax = seg[s, 1] + 1.0 / seg[s, 4]
+        inside = chi2_core.window_contains(t, P[s], *chi2_core.transit_window(
+            P[s], aR[s], inc[s], e[s], w[s], zmax, offs))
+        n["active"] += int(active.sum())
+        n["inside"] += int(inside.sum())
+        n["missed"] += int((active & ~inside).sum())
+        D = chi2_core.V3_DRAWS
+        n["warp"] += D * int(inside.view(-1, D, n_t).any(1).sum())
+    return n
 
 
-def orbit_bound(torch, chi2_core, orbit, rest, offs, ns):
-    """(bound_ms, bound_by, active share) of chi2_from_orbit on these
-    inputs. Bytes: time, obs, the six per-draw parameters (P, aR, inc, e,
-    w, g) and 59 coefficients read once, the output written once.
-    Operations: _orbit_flops."""
-    nbytes = 4 * (sum(a.numel() for a in (*orbit, *rest)) + orbit[1].numel())
-    flops, share = _orbit_flops(torch, chi2_core, orbit, rest, offs, ns)
-    return (*_bound(nbytes, flops), share)
+def _orbit_flops(counts, offs, ns):
+    """FP32 operations of an orbit kernel that solves at every point: the
+    orbit source's work at every point and draw (FLOPS_ORBIT_POINT,
+    FLOPS_ORBIT_DRAW) plus the plane kernels' work on the same z^2
+    model."""
+    C, n_t = counts["C"], counts["n_t"]
+    return (C * n_t * FLOPS_ORBIT_POINT[ns == 1] + C * FLOPS_ORBIT_DRAW
+            + _deficit_flops(counts["active"], C * n_t, len(offs), n_t))
 
 
-def tab_bound(torch, chi2_core, orbit, rest, kud, offs, ns):
-    """(bound_ms, bound_by, active share) of chi2_from_orbit_tab on these
-    inputs. Bytes: time, obs, the nine per-draw inputs (P, aR, inc, e, w,
-    k, u1, u2, g) read once, the coefficient table once, the output
-    written once. Operations: _orbit_flops plus each draw's coefficient
-    stage at its own k-segment's degree (FLOPS_TAB_TERM per term,
+def _tab_flops(kud):
+    """FP32 operations of the tab kernels' coefficient stage: each draw's
+    at its own k-segment's degree (FLOPS_TAB_TERM per term,
     FLOPS_TAB_DRAW)."""
     from triceratops_tpu_torch.ops import fastcore
 
-    t, obs = orbit[0], rest[5]
-    tab = chi2_core._device_table(t.device)
-    nbytes = 4 * (t.numel() + obs.numel() + 10 * orbit[1].numel()
-                  + tab.numel())
     br = np.asarray(fastcore._TAB_BREAKS, np.float32)
     kc = np.clip(kud[0].cpu().numpy(), br[0], br[-1])
     seg = np.clip(np.searchsorted(br, kc, side="right") - 1, 0, 7)
     deg = np.asarray(fastcore._TAB_DEGS)[seg]
-    flops, share = _orbit_flops(torch, chi2_core, orbit, rest, offs, ns)
-    flops += int(deg.sum()) * FLOPS_TAB_TERM + kc.size * FLOPS_TAB_DRAW
-    return (*_bound(nbytes, flops), share)
+    return int(deg.sum()) * FLOPS_TAB_TERM + kc.size * FLOPS_TAB_DRAW
+
+
+def _orbit_bytes(orbit, rest):
+    """time, obs, the six per-draw parameters (P, aR, inc, e, w, g) and 59
+    coefficients read once, the output written once."""
+    return 4 * (sum(a.numel() for a in (*orbit, *rest)) + orbit[1].numel())
+
+
+def _tab_bytes(chi2_core, orbit, rest):
+    """time, obs, the nine per-draw inputs (P, aR, inc, e, w, k, u1, u2, g)
+    read once, the coefficient table once, the output written once."""
+    t, obs = orbit[0], rest[5]
+    tab = chi2_core._device_table(t.device)
+    return 4 * (t.numel() + obs.numel() + 10 * orbit[1].numel()
+                + tab.numel())
+
+
+def _share(counts, key):
+    return counts[key] / (counts["C"] * counts["n_t"])
+
+
+def orbit_bound(orbit, rest, offs, ns, counts):
+    """(bound_ms, bound_by, active share) of chi2_from_orbit on these
+    inputs (counts: point_counts). Bytes: _orbit_bytes. Operations:
+    _orbit_flops, the solve at every point."""
+    return (*_bound(_orbit_bytes(orbit, rest),
+                    _orbit_flops(counts, offs, ns)), _share(counts, "active"))
+
+
+def tab_bound(chi2_core, orbit, rest, kud, offs, ns, counts):
+    """(bound_ms, bound_by, active share) of chi2_from_orbit_tab on these
+    inputs. Bytes: _tab_bytes. Operations: _orbit_flops plus the
+    coefficient stage (_tab_flops)."""
+    flops = _orbit_flops(counts, offs, ns) + _tab_flops(kud)
+    return (*_bound(_tab_bytes(chi2_core, orbit, rest), flops),
+            _share(counts, "active"))
+
+
+def window_bound(chi2_core, orbit, rest, kud, offs, ns, counts, tab=True):
+    """(bound_ms, bound_by, share of (draw, point) pairs outside their
+    draw's window) of a v3 orbit kernel that skips the solve outside each
+    draw's transit window: chi2_from_orbit_v3_tab (tab) or
+    chi2_from_orbit_v3. Operations: per draw its orbit constants and
+    window (FLOPS_ORBIT_DRAW, FLOPS_WINDOW_DRAW), the solve and z^2 model
+    only at the pairs inside the draw's own window (counts' "inside"), the
+    deficit at the active ones, and for tab the coefficient stage. Bytes:
+    those of tab_bound or orbit_bound."""
+    C, n_t, S = counts["C"], counts["n_t"], len(offs)
+    n_in, n_active = counts["inside"], counts["active"]
+    flops = (C * (FLOPS_ORBIT_DRAW + FLOPS_WINDOW_DRAW)
+             + n_in * FLOPS_ORBIT_POINT[ns == 1]
+             + n_active * (S * FLOPS_NODE_POINT + FLOPS_POINT)
+             + (n_in - n_active) * S * 4 + 2 * n_t)
+    if tab:
+        flops += _tab_flops(kud)
+        nbytes = _tab_bytes(chi2_core, orbit, rest)
+    else:
+        nbytes = _orbit_bytes(orbit, rest)
+    return (*_bound(nbytes, flops), 1.0 - _share(counts, "inside"))
 
 
 def _gate(torch, name, kern, plain, C):
@@ -526,9 +613,12 @@ def phase_kernel(torch, chi2_core):
 
 def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
                  C_main):
-    """The three orbit kernels at one shape: the gates against the plain
+    """The five orbit kernels at one shape: the gates against the plain
     version and the yardstick at C_cmp draws, the time and bound at
-    C_main."""
+    C_main. The v3 kernels' bound is window_bound (the solve only inside
+    each draw's transit window, what they run), beside the bound of a
+    solve at every point (orbit_bound, tab_bound); the transit windows of
+    the C_main draws must hold every active point."""
     orbit, rest, offs, wgts, kud = _draws(torch, C_cmp, n_t, ns, window,
                                           seed)
     kw = dict(offs=offs, wgts=wgts, ns=ns)
@@ -539,8 +629,10 @@ def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
         main = _draws(torch, C_main, n_t, ns, window, seed)
     else:
         main = orbit, rest, offs, wgts, kud
-    bound_ms, bound_by, share = orbit_bound(torch, chi2_core, *main[:2],
-                                            offs, ns)
+    counts = point_counts(torch, chi2_core, *main[:2], offs, ns)
+    check(counts["missed"] == 0, f"{name}: {counts['missed']} active points "
+          "lie outside their draw's transit window")
+    every = orbit_bound(*main[:2], offs, ns, counts)
     row = {}
     for kname, plane_fn in (("chi2_from_orbit", chi2_core.chi2_supersampled),
                             ("chi2_from_orbit_v3",
@@ -555,30 +647,59 @@ def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
             wgts=wgts))
         ms = (cmp_ms if C_main == C_cmp
               else _median_ms(torch, lambda: fn(*main[0], *main[1], **kw)))
+        v3 = kname == "chi2_from_orbit_v3"
+        bound_ms, bound_by, _ = (
+            window_bound(chi2_core, *main[:2], main[4], offs, ns, counts,
+                         tab=False) if v3 else every)
+        extra = (f" (window_bound; orbit_bound, a solve at every point, "
+                 f"{every[0]:.4f} ms)" if v3 else "")
         print(f"phase 3: {name} {kname} n_t={n_t} nodes={len(offs)}: at "
               f"C={C_cmp} lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff "
               f"{dz:.3g}; kernel {cmp_ms:.4f} ms, yardstick (planes + "
               f"plane kernel) {yard_ms:.4f} ms, plain {plain_ms:.4f} ms; at "
               f"C={C_main} kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, {share:.4f} of points in transit) (medians)")
+              f"({bound_by}){extra}, {every[2]:.4f} of points in transit, "
+              f"{1.0 - _share(counts, 'inside'):.4f} of (draw, point) "
+              f"pairs outside their draw's window, "
+              f"{1.0 - _share(counts, 'warp'):.4f} outside every window of "
+              f"their warp (medians)")
         row[kname] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           yardstick_ms=yard_ms, cmp_ms=cmp_ms, C=C_main,
                           C_cmp=C_cmp)
-    row["chi2_from_orbit_tab"] = _tab_shape(torch, chi2_core, name, ns,
-                                            (orbit, rest, kud), main, kw)
+        if v3:
+            row[kname]["bound_ms_every_point"] = every[0]
+    targs = (*orbit, *kud, rest[5])
+    tab_plain = chi2_core.chi2_from_orbit_tab_plain(*targs, **kw)
+    tab_plain_ms = _median_ms(
+        torch, lambda: chi2_core.chi2_from_orbit_tab_plain(*targs, **kw),
+        reps=5)
+    for kname in ("chi2_from_orbit_tab", "chi2_from_orbit_v3_tab"):
+        row[kname] = _tab_shape(torch, chi2_core, name, kname, ns,
+                                (orbit, rest, kud), main, kw, counts,
+                                tab_plain, tab_plain_ms,
+                                row.get("chi2_from_orbit_tab"))
     return row
 
 
-def _tab_shape(torch, chi2_core, name, ns, cmp, main, kw):
-    """The tab kernel at one shape: on the comparison draws (cmp: orbit,
-    rest, kud of _draws) the gates against its plain version and against
-    its yardstick's result, the torch tab coefficient stage fed to orbit
-    v2 (the main path before the tab kernel), and both times; on the main
-    path's draws (main, _draws' tuple) the time, the yardstick's time and
-    the bound; and the compiler's and occupancy calculator's view of its
-    instance."""
+def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
+               plain, plain_ms, v2_tab):
+    """A tab kernel (kname: chi2_from_orbit_tab or chi2_from_orbit_v3_tab)
+    at one shape: on the comparison draws (cmp: orbit, rest, kud of
+    _draws) the gates against its plain version (plain, timed plain_ms)
+    and against its yardstick's result, the torch tab coefficient stage
+    fed to the schedule's exact orbit kernel (orbit v2, the main path
+    before the tab kernel, or orbit v3), and both times; on the main
+    path's draws (main, _draws' tuple; counts, their point_counts) the
+    time, the yardstick's time and the bound (tab_bound, or for v3
+    window_bound beside tab_bound); and the compiler's and occupancy
+    calculator's view of its instance. For v3, v2_tab is the tab kernel's
+    row on the same draws."""
     from triceratops_tpu_torch.ops import fastcore
+
+    v3 = kname == "chi2_from_orbit_v3_tab"
+    orbit_fn = (chi2_core.chi2_from_orbit_v3 if v3
+                else chi2_core.chi2_from_orbit)
 
     def tab_args(orbit, rest, kud):
         return (*orbit, *kud, rest[5])
@@ -586,48 +707,64 @@ def _tab_shape(torch, chi2_core, name, ns, cmp, main, kw):
     def yardstick(orbit, rest, kud):
         k, u1, u2, g = kud
         cA, cB1, cB2, *segs = fastcore.cheb_deficit_coeffs_tab(k, u1, u2)
-        return chi2_core.chi2_from_orbit(
+        return orbit_fn(
             *orbit, cA.contiguous(), cB1.contiguous(), cB2.contiguous(),
             torch.stack(segs, 1), g[:, None], rest[5], **kw)
 
-    fn = chi2_core.chi2_from_orbit_tab
+    fn = getattr(chi2_core, kname)
     args = tab_args(*cmp)
     C_cmp, C_main = cmp[0][1].shape[0], main[0][1].shape[0]
-    n_t = cmp[0][0].shape[0]
-    plain = chi2_core.chi2_from_orbit_tab_plain(*args, **kw)
-    plain_ms = _median_ms(torch, lambda: chi2_core.chi2_from_orbit_tab_plain(
-        *args, **kw), reps=5)
+    n_t, S = cmp[0][0].shape[0], len(kw["offs"])
     kern = fn(*args, **kw)
     yard = yardstick(*cmp)
     torch.cuda.synchronize()
-    p99, dmax, dz = _gate(torch, f"{name} chi2_from_orbit_tab", kern, plain,
-                          C_cmp)
-    yp99, ydmax, ydz = _gate(torch, f"{name} chi2_from_orbit_tab vs "
-                             "yardstick", kern, yard, C_cmp)
+    p99, dmax, dz = _gate(torch, f"{name} {kname}", kern, plain, C_cmp)
+    yp99, ydmax, ydz = _gate(torch, f"{name} {kname} vs yardstick", kern,
+                             yard, C_cmp)
     cmp_ms = _median_ms(torch, lambda: fn(*args, **kw))
     main_args = tab_args(main[0], main[1], main[4])
     ms = (cmp_ms if C_main == C_cmp
           else _median_ms(torch, lambda: fn(*main_args, **kw)))
     yard_ms = _median_ms(torch, lambda: yardstick(main[0], main[1], main[4]))
-    bound_ms, bound_by, share = tab_bound(torch, chi2_core, main[0], main[1],
-                                          main[4], kw["offs"], ns)
-    info = chi2_core.tab_kernel_info(ns, len(kw["offs"]))
-    print(f"phase 3: {name} chi2_from_orbit_tab n_t={n_t} "
-          f"nodes={len(kw['offs'])}: at C={C_cmp} vs plain lnL diff p99 "
-          f"{p99:.3g} max {dmax:.3g}, lnZ diff {dz:.3g}; vs yardstick "
-          f"(torch tab coefficients + orbit v2) p99 {yp99:.3g} max "
-          f"{ydmax:.3g}, lnZ diff {ydz:.3g}; kernel {cmp_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; at C={C_main} kernel {ms:.4f} ms, yardstick "
-          f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{share:.4f} of points in transit) (medians); "
-          f"{info['registers']} registers, {info['local_bytes']} bytes local "
-          f"a thread, {info['blocks_per_sm']} x {info['threads']}-thread "
-          f"blocks = {info['warps_per_sm']} warps per SM, "
-          f"{info['smem_bytes']} bytes shared a block, "
+    every = tab_bound(chi2_core, main[0], main[1], main[4], kw["offs"], ns,
+                      counts)
+    if v3:
+        bound_ms, bound_by, skipped = window_bound(
+            chi2_core, main[0], main[1], main[4], kw["offs"], ns, counts)
+        info = chi2_core.v3_kernel_info(ns, S)
+        extra = (f" (window_bound; tab_bound, a solve at every point, "
+                 f"{every[0]:.4f} ms), {skipped:.4f} of (draw, point) pairs "
+                 f"outside their draw's window, "
+                 f"{1.0 - _share(counts, 'warp'):.4f} outside every window "
+                 f"of their warp (not solved); the tab kernel on the same "
+                 f"draws {v2_tab['ms']:.4f} ms ({v2_tab['ms'] / ms:.3f}x)")
+    else:
+        bound_ms, bound_by, _ = every
+        info = chi2_core.tab_kernel_info(ns, S)
+        extra = ""
+    print(f"phase 3: {name} {kname} n_t={n_t} nodes={S}: at C={C_cmp} vs "
+          f"plain lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff {dz:.3g}; "
+          f"vs yardstick (torch tab coefficients + {orbit_fn.__name__}) p99 "
+          f"{yp99:.3g} max {ydmax:.3g}, lnZ diff {ydz:.3g}; kernel "
+          f"{cmp_ms:.4f} ms, plain {plain_ms:.4f} ms; at C={C_main} kernel "
+          f"{ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}){extra}; {every[2]:.4f} of points in transit "
+          f"(medians); {info['registers']} registers, {info['local_bytes']} "
+          f"bytes local a thread, {info['blocks_per_sm']} x "
+          f"{info['threads']}-thread blocks = {info['warps_per_sm']} warps "
+          f"per SM, {info['smem_bytes']} bytes shared a block, "
           f"{info['sms'] * info['blocks_per_sm']} persistent blocks")
-    return dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, yardstick_ms=yard_ms,
-                cmp_ms=cmp_ms, C=C_main, C_cmp=C_cmp, **info)
+    out = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, yardstick_ms=yard_ms,
+               cmp_ms=cmp_ms, C=C_main, C_cmp=C_cmp, **info)
+    if v3:
+        out.update(bound_ms_every_point=every[0], skipped=skipped,
+                   skipped_by_warps=1.0 - _share(counts, "warp"),
+                   tab_ms=v2_tab["ms"])
+    return out
+
+
+TAB_KERNELS = ("chi2_from_orbit_tab", "chi2_from_orbit_v3_tab")
 
 
 def phase_kernel_targets(torch, chi2_core, single):
@@ -637,9 +774,9 @@ def phase_kernel_targets(torch, chi2_core, single):
     the plain version target by target with the phase-3 gates and draw for
     draw to one launch per target, and timed beside N_BATCH x its
     one-target time at the same chunk (``single``, phase 3's slice shape)
-    and the bound, the sum of the targets' bounds (orbit_bound,
-    tab_bound). The tab kernel's plain version on these draws is the orbit
-    plain version on the torch tab coefficients of ``_draws``."""
+    and the bound, the sum of the targets' bounds (orbit_bound, tab_bound,
+    window_bound for v3). The tab kernels' plain version on these draws is
+    the orbit plain version on the torch tab coefficients of ``_draws``."""
     from triceratops_tpu_torch.ops.lightcurve import orbit_chunk
 
     C, n_t = orbit_chunk(N_DRAWS), 100
@@ -652,21 +789,26 @@ def phase_kernel_targets(torch, chi2_core, single):
     rest = [torch.cat([p[1][i] for p in per]) for i in range(6)]
     kud = [torch.cat([p[4][i] for p in per]) for i in range(4)]
     plain = chi2_core.chi2_from_orbit_plain(*orbit, *rest, **kw)
-    bounds = {"chi2_from_orbit": [
-        orbit_bound(torch, chi2_core, p[0], p[1], offs, NSAMPLES)
-        for p in per]}
-    bounds["chi2_from_orbit_v3"] = bounds["chi2_from_orbit"]
-    bounds["chi2_from_orbit_tab"] = [
-        tab_bound(torch, chi2_core, p[0], p[1], p[4], offs, NSAMPLES)
-        for p in per]
+    counts = [point_counts(torch, chi2_core, p[0], p[1], offs, NSAMPLES)
+              for p in per]
+    bounds = {
+        "chi2_from_orbit": [orbit_bound(p[0], p[1], offs, NSAMPLES, n)
+                            for p, n in zip(per, counts)],
+        "chi2_from_orbit_v3": [
+            window_bound(chi2_core, p[0], p[1], p[4], offs, NSAMPLES, n,
+                         tab=False) for p, n in zip(per, counts)],
+        "chi2_from_orbit_tab": [
+            tab_bound(chi2_core, p[0], p[1], p[4], offs, NSAMPLES, n)
+            for p, n in zip(per, counts)],
+        "chi2_from_orbit_v3_tab": [
+            window_bound(chi2_core, p[0], p[1], p[4], offs, NSAMPLES, n)
+            for p, n in zip(per, counts)]}
 
     def args(kname, o, r, k):
-        return ((*o, *k, r[5]) if kname == "chi2_from_orbit_tab"
-                else (*o, *r))
+        return (*o, *k, r[5]) if kname in TAB_KERNELS else (*o, *r)
 
     out = {}
-    for kname in ("chi2_from_orbit", "chi2_from_orbit_v3",
-                  "chi2_from_orbit_tab"):
+    for kname in bounds:
         fn = getattr(chi2_core, kname)
         bound_ms = sum(b[0] for b in bounds[kname])
         kern = fn(*args(kname, orbit, rest, kud), **kw)
@@ -695,19 +837,22 @@ def phase_kernel_targets(torch, chi2_core, single):
     return out
 
 
-def toi465_field():
-    """A TOI-465-like target (bench.py's fixture: P = 3.18 d, 5.5 Re
-    planet, ~100-point folded curve, sigma = 4e-4) plus two nearby stars
-    faint enough that each needs a transit depth between 0 and 1."""
-    import pandas as pd
+# the TOI-465-like planet of phases 4-11: period [d], host mass [Msun] and
+# radius [Rsun], planet radius [Re], and the curves' noise
+TOI465_P, TOI465_M, TOI465_R, TOI465_RP = 3.18, 1.09, 1.06, 5.5
+TOI465_SIGMA = 4e-4
+
+
+def planet_flux(time_, seed):
+    """Flux of the TOI-465-like planet (inc 89 deg, circular) at exposure
+    centres time_ (days from mid-transit), plus seeded normal noise of
+    TOI465_SIGMA."""
     import torch
     from triceratops_tpu_torch.constants import G, MSUN, RSUN, REARTH
     from triceratops_tpu_torch.core.kepler import projected_z
     from triceratops_tpu_torch.ops.occult import occult_quad_deficit
 
-    P, M_s, R_s, rp = 3.18, 1.09, 1.06, 5.5
-    n_t = 100
-    time_ = np.linspace(-0.15, 0.15, n_t)
+    P, M_s, R_s, rp = TOI465_P, TOI465_M, TOI465_R, TOI465_RP
     a = ((G * M_s * MSUN) / (4 * np.pi**2) * (P * 86400.0) ** 2) ** (1 / 3)
     c = lambda v: torch.tensor(v, dtype=torch.float64)  # noqa: E731
     z, front = projected_z(torch.as_tensor(time_), 0.0, c(P),
@@ -715,9 +860,20 @@ def toi465_field():
                            c(0.0))
     D = occult_quad_deficit(c(rp * REARTH / (R_s * RSUN)), z, c(0.35),
                             c(0.25)) * front
-    sigma = 4e-4
-    rng = np.random.default_rng(42)
-    flux = 1.0 - D.numpy() + rng.normal(0, sigma, n_t)
+    rng = np.random.default_rng(seed)
+    return 1.0 - D.numpy() + rng.normal(0, TOI465_SIGMA, len(time_))
+
+
+def toi465_field():
+    """A TOI-465-like target (bench.py's fixture: P = 3.18 d, 5.5 Re
+    planet, ~100-point folded curve, sigma = 4e-4) plus two nearby stars
+    faint enough that each needs a transit depth between 0 and 1."""
+    import pandas as pd
+
+    P, M_s, R_s = TOI465_P, TOI465_M, TOI465_R
+    time_ = np.linspace(-0.15, 0.15, 100)
+    sigma = TOI465_SIGMA
+    flux = planet_flux(time_, 42)
     rows = [dict(ID="465", Tmag=9.7, Jmag=8.9, Hmag=8.7, Kmag=8.6, ra=90.0,
                  dec=-60.0, mass=M_s, rad=R_s, Teff=5950.0, plx=11.0,
                  **{"sep (arcsec)": 0.0, "PA (E of N)": 0.0}),
@@ -773,8 +929,9 @@ def _only(c, name):
 def phase_slice(torch, chi2_core, tr, workdir):
     """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
     stars. Returns each kernel's launches in its path's run (the tab
-    kernel on the main path, orbit v2 under TRICERATOPS_COEFFS=exact, orbit
-    v3 under the v3 schedule), run, the target and phase 6's median."""
+    kernel on the main path, orbit v2 under TRICERATOPS_COEFFS=exact, the
+    v3 tab kernel under the v3 schedule, orbit v3 under both), run, the
+    target and phase 6's median."""
     import contextlib
 
     from triceratops_tpu_torch.ops import fastcore, lightcurve
@@ -869,6 +1026,8 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"gated) {dz_lifted.max():.3g}")
     check(dz_tf32.max() < 1e-2, f"lnZ under TF32 differs: {dz_tf32}")
 
+    # the v3 schedule: the v3 tab kernel, then under exact coefficients
+    # orbit v3, each held to the v2 run on the same coefficients
     lightcurve.CHI2_SCHEDULE = "3"
     try:
         _reset(chi2_core)
@@ -876,15 +1035,42 @@ def phase_slice(torch, chi2_core, tr, workdir):
         v3_counts = _counts(chi2_core)
         dz3 = np.abs(t.lnZ - lnZ)
         wall_v3_warm = run(5)
+        fastcore.COEFFS_BACKEND = "exact"
+        try:
+            _reset(chi2_core)
+            wall_v3_exact = run(1)
+            v3_exact_counts = _counts(chi2_core)
+            dz3_exact = np.abs(t.lnZ - lnZ_exact)
+        finally:
+            fastcore.COEFFS_BACKEND = "auto"
     finally:
         lightcurve.CHI2_SCHEDULE = "2"
     print(f"phase v3: same seed under the v3 schedule {wall_v3:.3f} s, "
           f"warm (seed 5) {wall_v3_warm:.4f} s; launches {v3_counts}; "
           f"per-row |lnZ v3 - lnZ v2| max {dz3.max():.3g}")
-    check(_only(v3_counts, "launches_orbit_v3"),
-          f"the v3 schedule must launch only the v3 orbit kernel: "
-          f"{v3_counts}")
+    print(f"phase v3: same seed under the v3 schedule and "
+          f"TRICERATOPS_COEFFS=exact {wall_v3_exact:.3f} s; launches "
+          f"{v3_exact_counts}; per-row |lnZ - lnZ exact v2 (phase 5)| max "
+          f"{dz3_exact.max():.3g}, on the rows within {LONG_NEAR_NATS} "
+          f"nats of the winner "
+          f"{dz3_exact[lnZ_exact > lnZ_exact.max() - LONG_NEAR_NATS].max():.3g}")
+    check(_only(v3_counts, "launches_orbit_v3_tab")
+          and v3_counts["launches_orbit_v3_tab"] == len(lnZ),
+          f"the v3 schedule must launch only the v3 tab kernel, once per "
+          f"row: {v3_counts}")
     check(dz3.max() < 1e-2, f"v3 and v2 lnZ differ: {dz3}")
+    check(_only(v3_exact_counts, "launches_orbit_v3")
+          and v3_exact_counts["launches_orbit_v3"] == len(lnZ),
+          f"v3 under TRICERATOPS_COEFFS=exact must launch only orbit v3, "
+          f"once per row: {v3_exact_counts}")
+    # the exact coefficients leave a deficit residue of ~1e-8 beyond zmax
+    # (the tab ones ~1e-10), which the v2 kernel keeps in a 32-point group
+    # that runs and the v3 kernel drops outside each draw's window; where
+    # the curve is deep that moves a row by ~1e-2, so the gate holds the
+    # rows that carry weight (within LONG_NEAR_NATS of the winner)
+    near = lnZ_exact > lnZ_exact.max() - LONG_NEAR_NATS
+    check(dz3_exact[near].max() < 1e-2,
+          f"v3 and v2 lnZ under exact coefficients differ: {dz3_exact}")
 
     torch.cuda.reset_peak_memory_stats()
     walls = [run(seed) for seed in (2, 3, 4)]
@@ -894,12 +1080,73 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     # each kernel's launches in its own path's run: the plane kernels are
     # on none
-    launches = dict(chi2_supersampled=main_counts["launches"],
-                    chi2_supersampled_v3=v3_counts["launches_v3"],
-                    chi2_from_orbit=exact_counts["launches_orbit"],
-                    chi2_from_orbit_v3=v3_counts["launches_orbit_v3"],
-                    chi2_from_orbit_tab=main_counts["launches_orbit_tab"])
+    launches = dict(
+        chi2_supersampled=main_counts["launches"],
+        chi2_supersampled_v3=v3_counts["launches_v3"],
+        chi2_from_orbit=exact_counts["launches_orbit"],
+        chi2_from_orbit_v3=v3_exact_counts["launches_orbit_v3"],
+        chi2_from_orbit_tab=main_counts["launches_orbit_tab"],
+        chi2_from_orbit_v3_tab=v3_counts["launches_orbit_v3_tab"])
     return launches, run, t, med
+
+
+def phase_long(chi2_core, t):
+    """Phase long: the 21-row calc_probs (N = 1e6, nsamples = 20) of phase
+    4's target on a seeded synthetic curve of bench_longlc.py's window
+    shape: LONG_N_T exposure centres uniform in |t| < LONG_WINDOW d
+    (folded from many transits, 2-min exposures), sorted, phase 4's planet
+    and noise. The same seed under schedules 2 (the tab kernel) and 3 (the
+    v3 tab kernel, which skips the solve outside each draw's transit
+    window): each launches only its kernel, once per row; per-row lnZ
+    within 1e-2 nats on the rows within LONG_NEAR_NATS of the winner and
+    the same -inf rows. Prints each schedule's first and warm wall (host
+    clock, the call ends in a device-to-host copy). Returns the walls."""
+    from triceratops_tpu_torch.ops import lightcurve
+
+    rng = np.random.default_rng(LONG_SEED)
+    time_ = np.sort(rng.uniform(-LONG_WINDOW, LONG_WINDOW, LONG_N_T))
+    flux = planet_flux(time_, LONG_SEED + 1)
+    lnZ, walls, counts = {}, {}, {}
+    for sched, counter in (("2", "launches_orbit_tab"),
+                           ("3", "launches_orbit_v3_tab")):
+        lightcurve.CHI2_SCHEDULE = sched
+        try:
+            calls = []
+            for _ in range(2):
+                _reset(chi2_core)
+                t0 = time.perf_counter()
+                t.calc_probs(time_, flux, TOI465_SIGMA, P_orb=TOI465_P,
+                             N=N_DRAWS, nsamples=NSAMPLES, verbose=0,
+                             key=LONG_SEED, device="cuda")
+                calls.append(time.perf_counter() - t0)
+                counts[sched] = _counts(chi2_core)
+                check(_only(counts[sched], counter)
+                      and counts[sched][counter] == len(t.lnZ),
+                      f"phase long, schedule {sched}: expected only "
+                      f"{counter}, once per row: {counts[sched]}")
+        finally:
+            lightcurve.CHI2_SCHEDULE = "2"
+        lnZ[sched], walls[sched] = t.lnZ.copy(), calls
+    a, b = lnZ["2"], lnZ["3"]
+    names = t.probs["scenario"].values
+    check(np.array_equal(np.isneginf(a), np.isneginf(b)),
+          f"phase long: -inf rows differ: {a} vs {b}")
+    near = np.isfinite(a) & (a > np.max(a) - LONG_NEAR_NATS)
+    d = np.abs(a[near] - b[near])
+    print(f"phase long: calc_probs N={N_DRAWS} nsamples={NSAMPLES} on "
+          f"{LONG_N_T} points (|t| < {LONG_WINDOW} d), {len(a)} rows: "
+          f"schedule 2 (tab kernel) {walls['2'][0]:.3f} s first, "
+          f"{walls['2'][1]:.4f} s warm; schedule 3 (v3 tab kernel) "
+          f"{walls['3'][0]:.3f} s first, {walls['3'][1]:.4f} s warm; "
+          f"launches {counts['2']} / {counts['3']}; {int(near.sum())} rows "
+          f"within {LONG_NEAR_NATS} nats of the winner "
+          f"({names[np.argmax(a)]}), per-row |lnZ v3 - lnZ v2| max "
+          f"{d.max():.3g}; FPP {t.FPP:.6g} (schedule 3)")
+    print("phase long: lnZ v2 " + ", ".join(
+        f"{n}={v:.4f}" for n, v in zip(names, a)))
+    check(d.max() < 1e-2, f"phase long: v3 and v2 lnZ differ: "
+          f"{dict(zip(names[near], d))}")
+    return walls
 
 
 def _lnz_rows(res):
@@ -912,7 +1159,7 @@ def phase_dormant(torch, chi2_core, workdir):
     """Phase 7: the four dormant scenarios on the TOI-465-like curve at
     N = 1e6, each with one seed on v2, on the plain path and under v3.
     Gates per row: |lnZ kernel - lnZ plain| and |lnZ v3 - lnZ v2| < 1e-2,
-    only the schedule's orbit counter rose, the plain path launched
+    only the schedule's tab counter rose, the plain path launched
     nothing, and every lnZ finite but one: with R_s = 2.0 the logg = 3
     host weighs 0.146 Msun, every EB draw's flux ratio exceeds 1.5 sigma
     and the secondary veto empties NEB_evolved's normal row (as in the
@@ -984,8 +1231,8 @@ def phase_dormant(torch, chi2_core, workdir):
         check(d3.max() < 1e-2, f"{name}: v3 and v2 lnZ differ by {d3}")
         check(_only(c2, "launches_orbit_tab"),
               f"{name}: v2 must launch only the tab kernel: {c2}")
-        check(_only(c3, "launches_orbit_v3"),
-              f"{name}: v3 must launch only the v3 orbit kernel: {c3}")
+        check(_only(c3, "launches_orbit_v3_tab"),
+              f"{name}: v3 must launch only the v3 tab kernel: {c3}")
         check(not any(c_plain.values()),
               f"{name}: the plain path launched a kernel: {c_plain}")
     _reset(chi2_core)
@@ -1433,6 +1680,7 @@ def main():
         with tempfile.TemporaryDirectory() as workdir:
             launches, run, t, med = phase_slice(torch, chi2_core, tr,
                                                 workdir)
+            phase_long(chi2_core, t)
             phase_dormant(torch, chi2_core, workdir)
             phase_ensemble(chi2_core, t)
             phase_likelihoods(torch)
@@ -1448,8 +1696,11 @@ def main():
     # kernels at their old 16384-draw chunk, the orbit kernels at
     # orbit_chunk(1e6); no single PyTorch call computes this function, so
     # no library time. Launches: the tab kernel in phase 10's warm batch
-    # call, orbit v2 in phase 5's TRICERATOPS_COEFFS=exact call, orbit v3
-    # in phase v3's call, the plane kernels on no path
+    # call, orbit v2 in phase 5's TRICERATOPS_COEFFS=exact call, the v3
+    # tab kernel in phase v3's call and orbit v3 in its exact call, the
+    # plane kernels on no path. The v3 orbit kernels' bound_ms is
+    # window_bound's (the solve inside each draw's window only, what they
+    # run), bound_ms_every_point a solve at every point
     src = "triceratops_tpu_torch/csrc/chi2_supersampled.cu"
     kernels = []
     for name, replaces in (
@@ -1459,7 +1710,9 @@ def main():
             ("chi2_from_orbit_v3",
              "triceratops_tpu/ops/pallas_core.py:267"),
             ("chi2_from_orbit_tab",
-             "triceratops_tpu/ops/pallas_core.py:120")):
+             "triceratops_tpu/ops/pallas_core.py:120"),
+            ("chi2_from_orbit_v3_tab",
+             "triceratops_tpu/ops/pallas_core.py:267")):
         k = timing["slice"][name]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[name],
@@ -1468,7 +1721,8 @@ def main():
                "bound_by": k["bound_by"], "library_ms": None,
                "build_s": build_s}
         for key in ("transpose_ms", "yardstick_ms", "C", "registers",
-                    "local_bytes", "warps_per_sm"):
+                    "local_bytes", "warps_per_sm", "bound_ms_every_point",
+                    "skipped", "skipped_by_warps", "tab_ms"):
             if k.get(key) is not None:
                 row[key] = k[key]
         if name in timing["targets"]:

@@ -11,12 +11,14 @@ their median), then runs chip_smoke.py's profile phase on the kernel path
 under torch.profiler for the kernel launches, device time, idle share,
 CUDA kernel count, the top device ops and the host ranges.
 
-    python3 profile_port.py [--tree DIR] [--walls]
+    python3 profile_port.py [--tree DIR] [--walls] [--schedule 3]
 
 --tree imports the port (triceratops_tpu_torch) from another checkout,
 e.g. an unpacked earlier commit, so that two trees are profiled by the
 same code in one run. --walls skips the kernel timing and the profile
-and prints only the warm walls. The plain torch path's profile is
+and prints only the warm walls. --schedule 3 runs every call under the
+v3 chi^2 schedule (ops/lightcurve.py::CHI2_SCHEDULE, what
+TRICERATOPS_PALLAS_V=3 selects). The plain torch path's profile is
 ``chip_smoke.py --profile``.
 """
 
@@ -33,6 +35,8 @@ def main():
                     help="checkout to import triceratops_tpu_torch from")
     ap.add_argument("--walls", action="store_true",
                     help="only the warm walls of chip_smoke.py's phase 6")
+    ap.add_argument("--schedule", choices=("2", "3"), default="2",
+                    help="the chi^2 kernel schedule of every call")
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     tree = Path(args.tree).resolve() if args.tree else here
@@ -44,9 +48,12 @@ def main():
 
     import torch
     import triceratops_tpu_torch.triceratops as tr
+    from triceratops_tpu_torch.ops import lightcurve
 
+    lightcurve.CHI2_SCHEDULE = args.schedule
     smoke.phase_device(torch)
-    print(f"profile_port: package {Path(tr.__file__).resolve().parent.parent}")
+    print(f"profile_port: package {Path(tr.__file__).resolve().parent.parent}"
+          f", schedule {args.schedule}")
     if not args.walls:
         plane_kernel_ms(torch, smoke)
     with tempfile.TemporaryDirectory() as workdir:

@@ -3,8 +3,8 @@ it (ops/lightcurve.py), port vs the JAX Pallas kernels (the v2
 ``chi2_supersampled`` and the time-major ``chi2_supersampled_v3``) in
 interpret mode: the plane entry points against the kernels on identical
 planes, the orbit entry points (``chi2_from_orbit``, ``_v3``, and
-``chi2_from_orbit_tab``, which computes the tabulated coefficients itself)
-against the JAX package's whole fused step,
+``chi2_from_orbit_tab`` and ``_v3_tab``, which compute the tabulated
+coefficients themselves) against the JAX package's whole fused step,
 ``ops/lightcurve.py::_chi2_pallas``.
 
 Tolerances are those of tests/test_pallas_core.py: per-draw lnL carries
@@ -191,7 +191,7 @@ class TestChi2Kernel:
     @pytest.mark.parametrize("n_t,ns", [(100, 20), (137, 1)])
     def test_v3_kernel_matches_plain_on_card(self, n_t, ns, monkeypatch):
         """On the card: under the v3 schedule ``_chi2_fused`` launches the
-        v3 orbit kernel only, against the plain version on the same CUDA
+        v3 tab kernel only, against the plain version on the same CUDA
         tensors (C = 16384; n_t = 137 ends in a partial time block), with
         the lnL-scale gates above."""
         if not torch.cuda.is_available():
@@ -203,7 +203,7 @@ class TestChi2Kernel:
         before = _counts()
         kern = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1,
                                u2, g, n_t, ns)
-        assert _counts() == _plus(before, "launches_orbit_v3")
+        assert _counts() == _plus(before, "launches_orbit_v3_tab")
         from triceratops_tpu_torch.ops.fastcore import deficit_coeffs
         from triceratops_tpu_torch.core.kepler import projected_z
         cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
@@ -247,7 +247,8 @@ class TestChi2Kernel:
 
 
 COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
-            "launches_orbit_tab", "launches_coeffs_tab")
+            "launches_orbit_tab", "launches_orbit_v3_tab",
+            "launches_coeffs_tab")
 
 
 def _counts():
@@ -500,30 +501,29 @@ class TestTabKernel:
             chi2_core.deficit_coeffs_tab(k[:0], u1[:0], u2[:0])
 
     def test_route(self, monkeypatch):
-        """``lightcurve.tab_in_kernel``: on a CUDA device the v2 schedule
-        with tabulated coefficients ("tab", or "auto" with float32 draws)
-        takes the tab kernel; "exact", float64 draws under "auto", or the
-        v3 schedule take the torch coefficient stage into the schedule's
-        orbit entry point; a CPU device always takes the latter (its plain
-        version). ``_chi2_fused`` calls the entry point the rule and
-        ``CHI2_SCHEDULE`` name, with (k, u1, u2) or the coefficients."""
+        """``lightcurve.tab_in_kernel``: on a CUDA device tabulated
+        coefficients ("tab", or "auto" with float32 draws) take the
+        schedule's tab kernel, under v2 and v3 alike; "exact" or float64
+        draws under "auto" take the torch coefficient stage into the
+        schedule's orbit entry point; a CPU device always takes the latter
+        (its plain version). ``_chi2_fused`` calls the entry point the rule
+        and ``CHI2_SCHEDULE`` name, with (k, u1, u2) or the
+        coefficients."""
         cuda, cpu = torch.device("cuda"), torch.device("cpu")
         f4, f8 = torch.float32, torch.float64
         tab = tlc.tab_in_kernel
-        assert tab(cuda, f4, "auto", "2")
-        assert tab("cuda:0", f4, "tab", "2")
-        assert tab(cuda, f8, "tab", "2")
-        assert not tab(cuda, f4, "exact", "2")
-        assert not tab(cuda, f8, "auto", "2")
+        assert tab(cuda, f4, "auto")
+        assert tab("cuda:0", f4, "tab")
+        assert tab(cuda, f8, "tab")
+        assert not tab(cuda, f4, "exact")
+        assert not tab(cuda, f8, "auto")
         for backend in ("auto", "tab", "exact"):
-            assert not tab(cuda, f4, backend, "3")
-            assert not tab(cpu, f4, backend, "2")
-            assert not tab(cpu, f4, backend, "3")
+            assert not tab(cpu, f4, backend)
 
         a = _tab_inputs(n_t=24)
         time, obs, k, P, aR, inc, e, w, u1, u2, g = map(torch.as_tensor, a)
-        names = ("chi2_from_orbit_tab", "chi2_from_orbit",
-                 "chi2_from_orbit_v3")
+        names = ("chi2_from_orbit_tab", "chi2_from_orbit_v3_tab",
+                 "chi2_from_orbit", "chi2_from_orbit_v3")
         called = []
         for name in names:
             monkeypatch.setattr(
@@ -531,6 +531,7 @@ class TestTabKernel:
                 lambda *xs, _n=name, **kw: called.append((_n, len(xs))))
         for in_kernel, schedule, want in (
                 (True, "2", ("chi2_from_orbit_tab", 11)),
+                (True, "3", ("chi2_from_orbit_v3_tab", 11)),
                 (False, "2", ("chi2_from_orbit", 12)),
                 (False, "3", ("chi2_from_orbit_v3", 12))):
             monkeypatch.setattr(tlc, "tab_in_kernel",
@@ -625,6 +626,118 @@ class TestTabKernel:
         kern = chi2_core.chi2_from_orbit_tab(*args, **kw)
         assert _counts() == _plus(before, "launches_orbit_tab")
         singles = torch.cat([chi2_core.chi2_from_orbit_tab(*p[0], **kw)
+                             for p in per])
+        torch.testing.assert_close(kern, singles, rtol=0, atol=0)
+
+
+class TestV3TabKernel:
+    @pytest.mark.parametrize("ns,n_t", [(4, 40), (1, 24)])
+    def test_plain_matches_jax_chi2_pallas_v3(self, ns, n_t, monkeypatch):
+        """``chi2_from_orbit_v3_tab`` on CPU tensors (its plain version, the
+        tab kernel's) against the JAX package's whole fused step under the
+        v3 schedule, ``_chi2_pallas`` with ``chi2_supersampled_v3`` in
+        interpret mode, on f32 draws over all eight k-segments (C = 256):
+        lnL p99 < 0.05, max < 1.0, lnZ within 1e-2 nats; no launch."""
+        monkeypatch.setattr(jlc, "PALLAS_V", "3")
+        a = _tab_inputs(n_t=n_t)
+        time, obs, k, P, aR, inc, e, w, u1, u2, g = map(jnp.asarray, a)
+        want = np.asarray(jlc._chi2_pallas(time, 0.00139, obs, k, P, aR,
+                                           inc, e, w, u1, u2, g, n_t, ns,
+                                           True), np.float64)
+        args, offs, wgts = _tab_args(a, ns)
+        before = _counts()
+        got = chi2_core.chi2_from_orbit_v3_tab(
+            *args, offs=offs, wgts=wgts, ns=ns).numpy().astype(np.float64)
+        assert _counts() == before
+        inv = 1.0 / (2 * 5e-4 ** 2)
+        d = np.abs(got - want) * inv
+        assert np.quantile(d, 0.99) < 0.05, np.quantile(d, 0.99)
+        assert d.max() < 1.0, d.max()
+        dz = abs(float(log_mean_exp_torch(torch.as_tensor(-got * inv), 256))
+                 - float(log_mean_exp_jax(jnp.asarray(-want * inv), 256)))
+        assert dz < 1e-2, dz
+
+    def test_wrapper_checks(self):
+        """The tab wrapper's checks with v3's draw multiple of 128; on the
+        CPU it gives the tab kernel's plain version, for one target and for
+        B = 2 targets in one call, and launches nothing."""
+        fn = chi2_core.chi2_from_orbit_v3_tab
+        args, offs, wgts = _tab_args(_tab_inputs(N=128), 4)
+        kw = dict(offs=offs, wgts=wgts, ns=20)
+        before = _counts()
+        got = fn(*args, **kw)
+        assert _counts() == before
+        assert torch.equal(got, chi2_core.chi2_from_orbit_tab_plain(*args,
+                                                                    **kw))
+        short = (args[0], *(x[:64] for x in args[1:10]), args[10])
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(*short, **kw)
+        with pytest.raises(TypeError, match="float32"):
+            fn(*args[:6], args[6].double(), *args[7:], **kw)
+        with pytest.raises(ValueError, match="ns = 1"):
+            fn(*args, offs=offs, wgts=wgts, ns=1)
+        with pytest.raises(ValueError, match="no chi2 kernel"):
+            fn(*(x.to("meta") for x in args), **kw)
+        two = [torch.stack([args[0], args[0] * 1.5])]
+        two += [torch.cat([x, x.flip(0)]) for x in args[1:10]]
+        two.append(torch.cat([args[10], args[10] * 0.5]))
+        got2 = fn(*two, **kw)
+        alone = torch.cat([fn(two[0][b], *(x[b * 128:(b + 1) * 128]
+                                           for x in two[1:10]),
+                              two[10][b:b + 1], **kw) for b in range(2)])
+        torch.testing.assert_close(got2, alone, rtol=1e-6, atol=0)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("n_t,ns", [(100, 20), (100, 1), (8055, 20),
+                                        (8055, 1)])
+    def test_kernel_matches_plain_on_card(self, n_t, ns):
+        """On the card: the v3 tab kernel against its plain version on the
+        same CUDA tensors (C = 4096, k over all eight k-segments; n_t =
+        8055 on |t| < 0.3 d), with the lnL-scale gates on the draws within
+        50 of the best lnL, and at n_t = 8055 the relative gate (p99 <
+        1e-3, max < 2e-2) on all draws."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        a = _tab_inputs(N=4096, n_t=n_t, seed=9)
+        if n_t > 1000:
+            a[0] = f32(a[0] * 2.0)
+        args, offs, wgts = _tab_args(
+            a, ns, lambda x: torch.as_tensor(x, device="cuda"))
+        before = _counts()
+        kern = chi2_core.chi2_from_orbit_v3_tab(*args, offs=offs, wgts=wgts,
+                                                ns=ns)
+        assert _counts() == _plus(before, "launches_orbit_v3_tab")
+        plain = chi2_core.chi2_from_orbit_tab_plain(*args, offs=offs,
+                                                    wgts=wgts, ns=ns)
+        inv = 1.0 / (2 * 5e-4 ** 2)
+        lnL_p = (-plain.double() * inv).cpu().numpy()
+        d = ((kern - plain).abs().double() * inv).cpu().numpy()
+        near = lnL_p > lnL_p.max() - 50.0
+        assert np.quantile(d[near], 0.99) < 0.05 and d[near].max() < 1.0
+        if n_t > 1000:
+            rel = d / (np.abs(lnL_p) + 1.0)
+            assert np.quantile(rel, 0.99) < 1e-3 and rel.max() < 2e-2
+
+    @pytest.mark.cuda
+    def test_targets_in_one_launch_on_card(self):
+        """On the card: one launch over B = 8 targets (each its own curve)
+        equals eight one-target launches draw for draw."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        per = []
+        for b in range(8):
+            a = _tab_inputs(N=2048, n_t=100, seed=70 + b)
+            a[0] = f32(a[0] * (1.0 + 0.2 * b))
+            per.append(_tab_args(
+                a, 20, lambda x: torch.as_tensor(x, device="cuda")))
+        offs, wgts = per[0][1:]
+        args = [torch.stack([p[0][0] for p in per])]
+        args += [torch.cat([p[0][i] for p in per]) for i in range(1, 11)]
+        kw = dict(offs=offs, wgts=wgts, ns=20)
+        before = _counts()
+        kern = chi2_core.chi2_from_orbit_v3_tab(*args, **kw)
+        assert _counts() == _plus(before, "launches_orbit_v3_tab")
+        singles = torch.cat([chi2_core.chi2_from_orbit_v3_tab(*p[0], **kw)
                              for p in per])
         torch.testing.assert_close(kern, singles, rtol=0, atol=0)
 

@@ -1,6 +1,6 @@
 // Fused exposure z^2 -> supersample -> Chebyshev deficit -> chi^2 for one
 // draw chunk: two schedules, each built over two z^2 sources chosen at
-// compile time, and a third instance of the v2 schedule that also computes
+// compile time, and in each schedule an orbit instance that also computes
 // the draws' deficit coefficients itself.
 //
 // Replaces the JAX package's Pallas TPU kernels
@@ -8,13 +8,14 @@
 //     _clenshaw_tile; the v2 schedule): chi2_kernel and chi2_kernel_tab
 //     below;
 //   * ops/pallas_core.py::chi2_supersampled_v3 (body _chi2_kernel_v3; the
-//     time-major v3 schedule): chi2_kernel_v3 below;
+//     time-major v3 schedule): chi2_kernel_v3 below, with ExactStage or
+//     TabStage;
 // and, with the orbit source, the XLA producer that fed them on the TPU
 // (ops/lightcurve.py::_chi2_pallas: exposure_z2_poly, or projected_z at
-// one node); chi2_kernel_tab also replaces the rest of that producer, the
-// tabulated coefficient stage (ops/fastcore.py::cheb_deficit_coeffs_tab:
-// one matmul per chunk on the TPU's matrix unit). All compute the same
-// function:
+// one node); chi2_kernel_tab and chi2_kernel_v3 with TabStage also replace
+// the rest of that producer, the tabulated coefficient stage
+// (ops/fastcore.py::cheb_deficit_coeffs_tab: one matmul per chunk on the
+// TPU's matrix unit). All compute the same function:
 //
 //   out[c] = sum_t gD (2 obs[t] + gD) + sum_t obs[t]^2,
 //   gD     = g[c] * front[c,t] * sum_s wgt[s] D_c(z_s),
@@ -42,7 +43,9 @@
 // for the deficit at GL-4: operations bound it. chi2_kernel_tab reads 40
 // bytes per draw instead of 260 and adds ~2 deg 162 + 324 operations per
 // draw (deg <= 24, its k-segment's degree) for the coefficients: still
-// operations.
+// operations. On a folded curve most exposures of a long curve cannot be
+// in transit for a given draw; chi2_kernel_v3 finds them from ~160
+// operations per draw and ~8 per point, before any solve.
 //
 // What the design does about it:
 //   * point_deficit, the per-point work (sqrt map, recurrence with its
@@ -75,12 +78,27 @@
 //     coefficients never reach device memory, and freeing the 54
 //     coefficient registers lets 16-warp blocks run two to an SM (the
 //     table allows two copies per SM);
-//   * v3 (chi2_kernel_v3): one thread per draw, the 32 draws of a warp
-//     consecutive, each thread walking the time axis, so a time-major
-//     plane row is one coalesced 128-byte load per warp and the orbit
-//     source reads one broadcast time value; the skip is a warp vote over
-//     32 draws x TIME_SUB time steps. Each thread owns its draw's sum: no
-//     shuffle, no atomic.
+//   * v3 (chi2_kernel_v3): draws on lanes, as on the TPU (one draw per
+//     lane there): a warp takes V3_DRAWS = 8 consecutive draws, four lanes
+//     each, and walks the time axis four points a step, so the lanes of a
+//     step read neighbouring plane entries (time-major) or time values.
+//     Persistent blocks of 32 warps, one per SM (the most that 64
+//     registers a thread and the tab instance's table plus 32 slots in
+//     shared memory allow); a warp's draws keep their coefficients in its
+//     shared-memory slot, coefficient-major with an odd pitch (the exact
+//     stage copies them from the (C, 18) arrays, the tab stage computes
+//     them with tab_coeffs from the table the block staged, one TMA bulk
+//     copy as chi2_kernel_tab). Per draw, before any solve, the orbit
+//     source bounds the mean-anomaly window outside which no node can be
+//     in transit (transit_window); per TIME_SUB steps each lane tests its
+//     points against its draw's window and the warp ORs the bits, so the
+//     Kepler solve and the deficit run only at steps some lane's window
+//     holds, and the deficit only where some lane is in transit. Transits
+//     of a folded curve sit at t = 0 for every draw, so the windows
+//     overlap; the warp solves the union of its draws' windows, and
+//     fewer draws a warp (8, not the TPU's 32 lanes) keep that union
+//     close to each draw's own window. A draw's four lanes add their sums
+//     with two shuffles: no atomic.
 // All are deterministic. Points inside a group or block that does run keep
 // their ~1e-8 deficit residue at z >= zmax, as on the TPU.
 //
@@ -88,13 +106,14 @@
 // counterpart of jax.vmap over the Pallas call, whose grid gains a target
 // axis). The C draws are target-major, Cb = C / B per target, and draw c
 // reads its own target's exposure times and observed curve, rows
-// b = c / Cb of time (B, n_t) and obs (B, n_t). Cb is a multiple of the
-// schedule's draw tile (256 for v2, 128 for v3), so a block never mixes
-// targets: b is computed from the block index, a value uniform over the
-// block that the compiler keeps in uniform registers, and the warp votes
-// stay per target. In chi2_kernel_tab a warp serves one draw at a time, so
-// b = c / Cb is uniform over the warp, and a draw's result does not depend
-// on the launch it is in. The plane entry points are one target (Cb = C).
+// b = c / Cb of time (B, n_t) and obs (B, n_t). In chi2_kernel Cb is a
+// multiple of the block's draws, so a block never mixes targets: b is
+// computed from the block index, a value uniform over the block that the
+// compiler keeps in uniform registers, and the warp votes stay per
+// target. In chi2_kernel_tab a warp serves one draw at a time and in
+// chi2_kernel_v3 V3_DRAWS draws of one target (Cb % 32 == 0), so b is
+// uniform over the warp, and a draw's result does not depend on the launch
+// it is in. The plane entry points are one target (Cb = C).
 //
 // Float32 semantics: square roots and divisions stay IEEE, sin/cos/atan2
 // are the accurate sinf/cosf/atan2f (no --use_fast_math, no __sinf), the
@@ -108,7 +127,10 @@
 // the Chebyshev recurrence in kappa is written the same way (a rounding
 // there grows with the degree); the basis sums and the weights are plain
 // FMAs, and every scalar of the table's segments is the float32 that
-// torch rounds fastcore.py's Python floats to.
+// torch rounds fastcore.py's Python floats to. In chi2_kernel_v3 a lane
+// sums a quarter of a whole curve, so its sum of gD (2 obs + gD) is
+// compensated (Kahan, with the same intrinsics) and sum obs^2 is taken in
+// double.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,10 +142,23 @@ namespace {
 constexpr int M_CHEB = 18;
 constexpr int MAX_NODES = 4;
 constexpr int WARPS_PER_BLOCK = 8;
-constexpr int V3_THREADS = 32;    // one warp per block spreads small C
-constexpr int V3_MIN_BLOCKS = 16;
+// chi2_kernel_v3: warps per persistent block (one block of the tab
+// instance per SM holds the table and 32 warp slots, at most 64 registers
+// a thread), draws per warp and the lanes that share a draw (lane l takes
+// draw l % V3_DRAWS and every V3_SPLIT-th time step from l / V3_DRAWS),
+// the draw multiple the wrappers check, the time steps of one window vote,
+// and a warp's coefficient slot: coefficient-major [3 M_CHEB][V3_PITCH]
+// floats with draw d in column d (an odd pitch puts the column written for
+// one draw, and a coefficient's row read by the draws, in distinct banks),
+// padded to 16 bytes
+constexpr int V3_WARPS = 32;
+constexpr int V3_THREADS = V3_WARPS * 32;
+constexpr int V3_DRAWS = 8;
+constexpr int V3_SPLIT = 32 / V3_DRAWS;
 constexpr int V3_DRAW_LANES = 128;
 constexpr int TIME_SUB = 8;
+constexpr int V3_PITCH = V3_DRAWS + 1;
+constexpr int V3_SLOT = 3 * M_CHEB * V3_PITCH + 2;
 // chi2_kernel_tab: warps per block and blocks per SM the registers must
 // allow (2 x 16 warps: at most 64 registers a thread), floats per warp
 // slot, the coefficient table's segments and columns (3 z-segments x
@@ -152,6 +187,18 @@ constexpr float MARKLEY_C1 = (float)(1.6 * PI_D);
 constexpr float MARKLEY_DEN = (float)(PI_D * PI_D - 6.0);
 constexpr float SIXTH = (float)(1.0 / 6.0);
 constexpr float THIRD = (float)(1.0 / 3.0);
+constexpr float INV_TWO_PI_F = (float)(1.0 / (2.0 * PI_D));
+constexpr float THREE_HALF_PI_F = (float)(1.5 * PI_D);
+// The transit window's margins (transit_window; chi2_core.py keeps the
+// same values): an absolute pad in mean anomaly (rad), a relative margin
+// for float32 rounding of z^2 and its model, a per-point relative margin
+// on |n t|, the shortest arc of true anomaly (rad) whose mean-anomaly arc
+// is trusted, and the half width that stands for the whole orbit
+constexpr float WIN_PAD = 1e-4f;
+constexpr float WIN_REL = 1e-5f;
+constexpr float WIN_REL_M = 1e-6f;
+constexpr float WIN_MIN_ARC = 1e-3f;
+constexpr float WIN_WHOLE = 4.0f;
 
 struct Nodes {
   float off[MAX_NODES];
@@ -231,6 +278,20 @@ __device__ __forceinline__ void load_coeffs(DrawCoeffs& k, const Chi2Args& p,
 
 // The four planes in device memory, draw-major (C, n_t) for v2 or
 // time-major (n_t, C) for v3; stride is the length of a row (n_t or C).
+// A draw's transit window (transit_window): its exposures can be in
+// transit only where n t, wrapped to within pi of mid, lies within half
+// of mid. half < 0: never; half >= WIN_WHOLE: the whole orbit.
+struct Window {
+  float mid, half;
+
+  __device__ __forceinline__ bool contains(float n, float t) const {
+    const float x = n * t;
+    const float y = x - mid;
+    const float yw = y - TWO_PI_F * rintf(y * INV_TWO_PI_F);
+    return half >= WIN_WHOLE || fabsf(yw) <= half + WIN_REL_M * fabsf(x);
+  }
+};
+
 template <bool TimeMajor>
 struct PlaneSource {
   const float* q0;
@@ -239,6 +300,7 @@ struct PlaneSource {
   const float* front;
   int64_t stride;
   static constexpr bool kOneNode = false;
+  static constexpr bool kWindow = false;   // no orbit: every point runs
 
   struct Draw {
     int64_t base;
@@ -298,6 +360,71 @@ __device__ __forceinline__ void kepler_sc(float M, float e, float& sinE,
   cosE = cE - dE * (sE + 0.5f * dE * (cE - dE * sE * THIRD));
 }
 
+// Eccentric anomaly of true anomaly f, as kepler.py::mean_anomaly_at_transit
+// forms it (sm = sqrt(1 - e), sp = sqrt(1 + e)).
+__device__ __forceinline__ float ecc_anomaly(float f, float sm, float sp) {
+  float sh, ch;
+  sincosf(f / 2.0f, &sh, &ch);
+  return 2.0f * atan2f(sm * sh, sp * ch);
+}
+
+// The mean anomaly swept going forward from eccentric anomaly E1 to E2
+// (the E arc taken in [0, 2pi)).
+__device__ __forceinline__ float mean_arc(float E1, float E2, float e) {
+  const float dE = E2 - E1;
+  return dE - TWO_PI_F * floorf(dE * INV_TWO_PI_F) - e * (sinf(E2) - sinf(E1));
+}
+
+// The draw's transit window in mean anomaly about its transit (n t = 0),
+// outside which no exposure node can count (model z^2 < zmax2 with the
+// exposure centre in front), computed once per draw before any solve.
+// z^2 = r^2 (cos^2 u + C sin^2 u) with u = w + f and r >= rmin = aR (1 - e),
+// so a node's z < zeff needs |cos u| < sqrt((zeff^2 / rmin^2 - C) / S) =
+// sin(th): u within th of pi/2 (in front) or 3pi/2 (behind). zeff^2 pads
+// zmax2 by the most the quadratic model can undershoot z^2 at a node,
+// |d|^3 / 6 max|d^3 z^2 / dt^3| <= |d|^3 / 6 (2 rmax J + 6 V A) with V,
+// A, J bounds on the orbit's speed, acceleration and jerk (the sky
+// projection only shrinks them), and by WIN_REL for float32 rounding.
+// Both ends u = pi/2 -+ th map to M through E(f); the arc is padded by
+// the nodes' spread n max|d| and WIN_PAD. A centre in front with a node
+// near u = 3pi/2 needs the mean-anomaly gap between u = pi (or 2pi) and
+// that branch within the spread: then, and where no th exists
+// (zeff >= rmin), the window is the whole orbit; where even u = pi/2
+// keeps z >= zeff it is empty.
+__device__ __forceinline__ Window transit_window(float e, float aR, float n,
+                                                 float S, float C, float w,
+                                                 float zmax2, float dmax) {
+  const float ome = 1.0f - e, ope = 1.0f + e;
+  const float rmin = aR * ome, rmax = aR * ope;
+  const float V = aR * n * sqrtf(ope / ome);
+  const float A = aR * n * n / (ome * ome);
+  const float J = 4.0f * n * n * V / (ome * ome * ome);
+  const float d2 = dmax * dmax;
+  const float T =
+      d2 * dmax * SIXTH * (2.0f * rmax * J + 6.0f * V * A) +
+      WIN_REL * (rmax * rmax + 2.0f * rmax * V * dmax + (V * V + rmax * A) * d2);
+  const float zeff2 = (zmax2 + T) * (1.0f + WIN_REL);
+  const float x = zeff2 / (rmin * rmin) - C;
+  if (!(x > 0.0f)) return {0.0f, -1.0f};
+  const float th = asinf(sqrtf(fminf(x / S, 1.0f)));
+  if (!(HALF_PI_F - th > WIN_MIN_ARC)) return {0.0f, WIN_WHOLE};
+  const float spread = n * dmax + WIN_PAD;
+  const float sm = sqrtf(ome), sp = sqrtf(ope);
+  const float fc = HALF_PI_F - w;
+  const float Ec = ecc_anomaly(fc, sm, sp);
+  const float a = mean_arc(ecc_anomaly(fc - th, sm, sp), Ec, e);
+  const float b = mean_arc(Ec, ecc_anomaly(fc + th, sm, sp), e);
+  const float fs = THREE_HALF_PI_F - w;
+  const float gap =
+      fminf(mean_arc(ecc_anomaly(PI_F - w, sm, sp),
+                     ecc_anomaly(fs - th, sm, sp), e),
+            mean_arc(ecc_anomaly(fs + th, sm, sp), ecc_anomaly(-w, sm, sp),
+                     e));
+  if (!(gap > spread) || !(a + b + 2.0f * spread < TWO_PI_F))
+    return {0.0f, WIN_WHOLE};
+  return {0.5f * (b - a), 0.5f * (a + b) + spread};
+}
+
 // The draw's orbit. Projected = false: core/kepler.py::z2_taylor at the
 // exposure centre (q1 = dz^2/dt, q2 = d^2z^2/dt^2 / 2); Projected = true:
 // projected_z, q0 = z^2 and q1 = q2 = 0 (the one-node path).
@@ -310,6 +437,7 @@ struct OrbitSource {
   const float* ecc;
   const float* w;
   static constexpr bool kOneNode = Projected;
+  static constexpr bool kWindow = true;
 
   struct Draw {
     float e, Mtc, sw, cw, S, C, ome2, aR;
@@ -350,6 +478,18 @@ struct OrbitSource {
     d.nome2 = d.n * d.ome2;
     d.m2enno = -2.0f * e * d.n * d.n * d.ome2;
     return d;
+  }
+
+  // draw c's transit window (d = draw(c)) for zmax^2 and nodes within
+  // dmax of the exposure centre
+  __device__ __forceinline__ Window window(const Draw& d, int c, float zmax2,
+                                           float dmax) const {
+    return transit_window(d.e, d.aR, d.n, d.S, d.C, __ldg(w + c), zmax2,
+                          dmax);
+  }
+
+  __device__ __forceinline__ float time_at(int ti) const {
+    return __ldg(time + ti);
   }
 
   __device__ __forceinline__ void point(const Draw& d, int ti, float& a0,
@@ -505,65 +645,6 @@ chi2_kernel(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
   const float acc =
       draw_chi2<Src, S>(src, d, k, gc, p.obs + row, n_t, nodes, lane);
   if (lane == 0) p.out[c] = acc;
-}
-
-// At least V3_MIN_BLOCKS one-warp blocks per SM caps the kernel at 128
-// registers a thread: left free, the orbit source at four nodes takes 159
-// and runs 12 warps per SM instead of 16, 1.3x slower on an H100 (a few
-// bytes spill at 128).
-template <class Src, int S>
-__global__ void __launch_bounds__(V3_THREADS, V3_MIN_BLOCKS)
-chi2_kernel_v3(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * V3_THREADS + threadIdx.x;  // C % 128 == 0
-  // the block's target (Cb % V3_THREADS == 0)
-  const int64_t row = (int64_t)((blockIdx.x * V3_THREADS) / p.Cb) * n_t;
-  const Src src = src_all.target(row);
-  const float* obs = p.obs + row;
-
-  // sum_t obs^2, the same for every draw of the target: lane-strided, then
-  // a butterfly
-  float obs2 = 0.0f;
-  for (int t = lane; t < n_t; t += 32) obs2 += obs[t] * obs[t];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    obs2 += __shfl_xor_sync(0xffffffffu, obs2, o);
-
-  DrawCoeffs k;
-  load_coeffs(k, p, c);
-  const float gc = __ldg(p.g + c);
-  const typename Src::Draw d = src.draw(c);
-
-  float acc = 0.0f;
-  for (int t0 = 0; t0 < n_t; t0 += TIME_SUB) {
-    // the block's TIME_SUB points are fetched together: the time index is
-    // clamped (no branch), and steps past the curve's end get front = 0
-    float a0[TIME_SUB], a1[TIME_SUB], a2[TIME_SUB], fr[TIME_SUB];
-#pragma unroll
-    for (int j = 0; j < TIME_SUB; ++j) {
-      float f;
-      src.point(d, min(t0 + j, n_t - 1), a0[j], a1[j], a2[j], f);
-      fr[j] = t0 + j < n_t ? f : 0.0f;
-    }
-    float z2[TIME_SUB][S];
-    bool active = false;
-#pragma unroll
-    for (int j = 0; j < TIME_SUB; ++j) {
-      const bool inside = exposure_z2<S>(a0[j], a1[j], a2[j], nodes,
-                                         k.zmax2, z2[j]);
-      active |= inside && fr[j] > 0.0f;
-    }
-    if (!__any_sync(0xffffffffu, active)) continue;
-#pragma unroll
-    for (int j = 0; j < TIME_SUB; ++j) {
-      if (t0 + j < n_t) {
-        const float ob = obs[t0 + j];
-        const float gD = gc * (point_deficit<S>(z2[j], k, nodes) * fr[j]);
-        acc += gD * (2.0f * ob + gD);
-      }
-    }
-  }
-  p.out[c] = acc + obs2;
 }
 
 // ---------------------------------------------------------------------------
@@ -784,6 +865,239 @@ coeffs_tab_kernel(const float* kd, const float* u1, const float* u2,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The v3 schedule (chi2_kernel_v3): draws on lanes, V3_SPLIT lanes a draw.
+
+// A lane's draw in its warp's coefficient slot (column d of the
+// coefficient-major [3 M_CHEB][V3_PITCH] slot; the point's segment picks a
+// row block), and its segment scalars in registers.
+struct LaneCoeffs {
+  const float* col;
+  float zsplit, zmid, invA, invB1, invB2, zmax2;
+
+  using Seg = const float*;
+  __device__ __forceinline__ Seg segment(bool inB1, bool inB2) const {
+    return col + (inB2 ? 2 * M_CHEB : (inB1 ? M_CHEB : 0)) * V3_PITCH;
+  }
+  __device__ __forceinline__ float coef(Seg sg, int m) const {
+    return sg[m * V3_PITCH];
+  }
+};
+
+// The coefficient stages of chi2_kernel_v3. Each fills a warp's slot with
+// the V3_DRAWS draws c0 .. c0 + V3_DRAWS - 1 and returns the LaneCoeffs of
+// the lane's draw d (the caller syncs the warp before reading the slot),
+// and says where the per-draw g, obs and out live. ExactStage copies the coefficients the torch stage made
+// ((C, 18) x 3 and seg (C, 5)); TabStage computes the tabulated ones from
+// (k, u1, u2) with tab_coeffs, from the table the block staged in shared
+// memory.
+struct ExactStage {
+  Chi2Args p;
+  static constexpr int kScratch = 0;   // floats a warp needs besides its slot
+
+  __device__ __forceinline__ int table_floats() const { return 0; }
+  __device__ __forceinline__ void begin(float*) const {}
+
+  // the warp's 3 x V3_DRAWS M_CHEB consecutive coefficients, coalesced,
+  // into the slot's columns
+  __device__ __forceinline__ LaneCoeffs load(const float*, float*,
+                                             float* slot, int c0, int lane,
+                                             int d) const {
+    const float* src[3] = {p.cA, p.cB1, p.cB2};
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const float* a = src[s] + (int64_t)c0 * M_CHEB;
+#pragma unroll
+      for (int r = 0; r < (V3_DRAWS * M_CHEB + 31) / 32; ++r) {
+        const int q = lane + 32 * r;
+        const int i = q / M_CHEB, m = q - i * M_CHEB;
+        if (q < V3_DRAWS * M_CHEB)
+          slot[(s * M_CHEB + m) * V3_PITCH + i] = __ldg(a + q);
+      }
+    }
+    const int c = c0 + d;
+    LaneCoeffs k;
+    k.col = slot + d;
+    k.zsplit = __ldg(p.seg + c * 5 + 0);
+    k.zmid = __ldg(p.seg + c * 5 + 1);
+    k.invA = __ldg(p.seg + c * 5 + 2);
+    k.invB1 = __ldg(p.seg + c * 5 + 3);
+    k.invB2 = __ldg(p.seg + c * 5 + 4);
+    const float zmax = k.zmid + 1.0f / k.invB2;
+    k.zmax2 = zmax * zmax;
+    return k;
+  }
+  __device__ __forceinline__ const float* g() const { return p.g; }
+  __device__ __forceinline__ const float* obs() const { return p.obs; }
+  __device__ __forceinline__ float* out() const { return p.out; }
+  __device__ __forceinline__ int Cb() const { return p.Cb; }
+};
+
+struct TabStage {
+  TabArgs p;
+  TabSegs ts;
+  static constexpr int kScratch = TAB_SLOT;   // tab_coeffs' output
+
+  __device__ __forceinline__ int table_floats() const {
+    return tab_floats(ts.n_rows);
+  }
+  __device__ __forceinline__ void begin(float* smem) const {
+    stage_table(smem, p.tab, 4u * tab_floats(ts.n_rows));
+  }
+
+  // per draw i of the warp's: tab_coeffs into the scratch, then the 54
+  // values into column i; the lanes of draw i keep the segment scalars
+  __device__ __forceinline__ LaneCoeffs load(const float* table,
+                                             float* scratch, float* slot,
+                                             int c0, int lane, int d) const {
+    const int c = c0 + d;
+    const float kv = __ldg(p.k + c), u1v = __ldg(p.u1 + c),
+                u2v = __ldg(p.u2 + c);
+    LaneCoeffs mine;
+    for (int i = 0; i < V3_DRAWS; ++i) {
+      SharedCoeffs k;
+      tab_coeffs(table, ts, __shfl_sync(0xffffffffu, kv, i),
+                 __shfl_sync(0xffffffffu, u1v, i),
+                 __shfl_sync(0xffffffffu, u2v, i), lane, scratch, k);
+      __syncwarp();
+      for (int o = lane; o < 3 * M_CHEB; o += 32)
+        slot[o * V3_PITCH + i] = scratch[o];
+      if (d == i) {
+        mine.zsplit = k.zsplit;
+        mine.zmid = k.zmid;
+        mine.invA = k.invA;
+        mine.invB1 = k.invB1;
+        mine.invB2 = k.invB2;
+        mine.zmax2 = k.zmax2;
+      }
+      __syncwarp();   // the scratch is free for the next draw
+    }
+    mine.col = slot + d;
+    return mine;
+  }
+  __device__ __forceinline__ const float* g() const { return p.g; }
+  __device__ __forceinline__ const float* obs() const { return p.obs; }
+  __device__ __forceinline__ float* out() const { return p.out; }
+  __device__ __forceinline__ int Cb() const { return p.Cb; }
+};
+
+// Floats of a v3 warp's region (the stage's scratch, then the slot), and
+// the dynamic shared memory of a block of `warps` warps: the table (tab)
+// and the warps' regions.
+template <class Stage>
+__host__ __device__ constexpr int v3_warp_floats() {
+  return Stage::kScratch + V3_SLOT;
+}
+
+template <class Stage>
+__host__ __device__ constexpr int v3_smem_bytes(int table_floats,
+                                                int warps = V3_WARPS) {
+  return 4 * (table_floats + warps * v3_warp_floats<Stage>());
+}
+
+// The v3 schedule in persistent blocks of up to V3_WARPS warps; warp w of
+// the grid takes the V3_DRAWS-draw groups w, w + (warps in the grid), ...;
+// lane l draw c0 + l % V3_DRAWS and the time steps t with t % V3_SPLIT ==
+// l / V3_DRAWS. Per group: the stage fills the warp's coefficient slot,
+// each lane forms its draw's orbit constants and transit window
+// (Src::window), then the warp walks the time axis V3_SPLIT points a step,
+// TIME_SUB steps a block. A lane's bit j says whether its point of step j
+// lies in its draw's window; the warp ORs the bits (__reduce_or_sync), so
+// a block outside every lane's window skips the Kepler solve and the
+// deficit, and only the steps some lane needs are solved. A solved step
+// runs the deficit when any lane is in front with z < zmax at a node
+// (__any_sync); a skipped point adds 0. The plane source has no window:
+// every step is read. The lanes of a draw add their sums with shuffles:
+// no atomic, and a draw's result does not depend on the launch it is in.
+template <class Src, int S, class Stage>
+__global__ void __launch_bounds__(V3_THREADS, 1)
+chi2_kernel_v3(Src src_all, const __grid_constant__ Stage st, int C,
+               int n_t, Nodes nodes) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int d = lane % V3_DRAWS;     // the lane's draw in the group
+  const int sub = lane / V3_DRAWS;   // its time steps' offset
+  float* scratch =
+      smem + st.table_floats() + warp * v3_warp_floats<Stage>();
+  float* slot = scratch + Stage::kScratch;
+  st.begin(smem);
+  float dmax = 0.0f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) dmax = fmaxf(dmax, fabsf(nodes.off[s]));
+  const int n_steps = (n_t + V3_SPLIT - 1) / V3_SPLIT;
+
+  for (int c0 = (blockIdx.x * (blockDim.x >> 5) + warp) * V3_DRAWS; c0 < C;
+       c0 += gridDim.x * (blockDim.x >> 5) * V3_DRAWS) {
+    const int c = c0 + d;
+    const int64_t row = (int64_t)(c0 / st.Cb()) * n_t;   // the target
+    const Src src = src_all.target(row);
+    const float* obs = st.obs() + row;
+    const LaneCoeffs k = st.load(smem, scratch, slot, c0, lane, d);
+    __syncwarp();
+
+    const float gc = __ldg(st.g() + c);
+    const typename Src::Draw dr = src.draw(c);
+    Window win{0.0f, WIN_WHOLE};
+    if constexpr (Src::kWindow) win = src.window(dr, c, k.zmax2, dmax);
+
+    // sum_t gD (2 obs + gD), compensated (acc - comp is the sum): a lane
+    // adds its draw's in-transit terms in sequence, and where the model
+    // fits a deep transit they cancel most of sum_t obs^2, which would
+    // leave a plain float sum's rounding at ~1e-2 nats of lnL over ~1e3
+    // in-transit points
+    float acc = 0.0f, comp = 0.0f;
+    for (int s0 = 0; s0 < n_steps; s0 += TIME_SUB) {
+      const int steps = min(TIME_SUB, n_steps - s0);
+      unsigned bits = (1u << steps) - 1u;
+      if constexpr (Src::kWindow) {
+        unsigned mine = 0u;
+#pragma unroll
+        for (int j = 0; j < TIME_SUB; ++j) {
+          const int t = (s0 + j) * V3_SPLIT + sub;
+          if (j < steps && t < n_t && win.contains(dr.n, src.time_at(t)))
+            mine |= 1u << j;
+        }
+        bits = __reduce_or_sync(0xffffffffu, mine);
+      }
+      while (bits) {
+        const int t = (s0 + __ffs(bits) - 1) * V3_SPLIT + sub;
+        bits &= bits - 1u;
+        const bool inb = t < n_t;
+        const int ti = inb ? t : n_t - 1;   // past the end: solved, dropped
+        float a0, a1, a2, fr;
+        src.point(dr, ti, a0, a1, a2, fr);
+        float z2[S];
+        const bool active = exposure_z2<S>(a0, a1, a2, nodes, k.zmax2, z2) &&
+                            fr > 0.0f && inb;
+        if (!__any_sync(0xffffffffu, active)) continue;
+        if (!inb) continue;
+        const float ob = __ldg(obs + ti);
+        const float gD = gc * (point_deficit<S>(z2, k, nodes) * fr);
+        const float y = __fsub_rn(gD * (2.0f * ob + gD), comp);
+        const float sum = __fadd_rn(acc, y);
+        comp = __fsub_rn(__fsub_rn(sum, acc), y);
+        acc = sum;
+      }
+    }
+
+    // the draw's lanes' sums, then sum_t obs^2 (the same for every draw of
+    // the target), in double: lane-strided, then a butterfly
+    double chi2 = (double)acc - (double)comp;
+#pragma unroll
+    for (int o = V3_DRAWS; o < 32; o <<= 1)
+      chi2 += __shfl_xor_sync(0xffffffffu, chi2, o);
+    double obs2 = 0.0;
+    for (int t = lane; t < n_t; t += 32)
+      obs2 += (double)obs[t] * (double)obs[t];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      obs2 += __shfl_xor_sync(0xffffffffu, obs2, o);
+    if (sub == 0) st.out()[c] = (float)(chi2 + obs2);
+    __syncwarp();   // every lane is done with the slot
+  }
+}
+
 Nodes make_nodes(const float* offs, const float* wgts, int n_nodes) {
   Nodes nodes = {};
   for (int s = 0; s < n_nodes; ++s) {
@@ -794,55 +1108,171 @@ Nodes make_nodes(const float* offs, const float* wgts, int n_nodes) {
   return nodes;
 }
 
-template <bool V3, class Src, int S>
+template <class Src, int S>
 void launch_nodes(const Src& src, const Chi2Args& p, int C, int n_t,
                   const Nodes& nodes, cudaStream_t st) {
-  if constexpr (V3) {
-    chi2_kernel_v3<Src, S><<<C / V3_THREADS, V3_THREADS, 0, st>>>(
-        src, p, C, n_t, nodes);
-  } else {
-    chi2_kernel<Src, S><<<(C + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK,
-                          WARPS_PER_BLOCK * 32, 0, st>>>(src, p, C, n_t,
-                                                         nodes);
-  }
+  chi2_kernel<Src, S><<<(C + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK,
+                        WARPS_PER_BLOCK * 32, 0, st>>>(src, p, C, n_t,
+                                                       nodes);
 }
 
-// Launch the v2 or v3 kernel over Src with S = n_nodes (1..4; the
-// projected orbit source has one node only). Returns cudaGetLastError().
-template <bool V3, class Src>
+// Launch the v2 kernel over Src with S = n_nodes (1..4; the projected
+// orbit source has one node only). Returns cudaGetLastError().
+template <class Src>
 int launch(const Src& src, const Chi2Args& p, int C, int n_t,
            const float* offs, const float* wgts, int n_nodes, void* stream) {
   if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
     return (int)cudaErrorInvalidValue;
-  if (V3 && (C <= 0 || C % V3_DRAW_LANES)) return (int)cudaErrorInvalidValue;
-  if (p.Cb <= 0 || C % p.Cb || p.Cb % (V3 ? V3_THREADS : WARPS_PER_BLOCK))
+  if (p.Cb <= 0 || C % p.Cb || p.Cb % WARPS_PER_BLOCK)
     return (int)cudaErrorInvalidValue;
   const Nodes nodes = make_nodes(offs, wgts, n_nodes);
   cudaStream_t st = (cudaStream_t)stream;
   if constexpr (Src::kOneNode) {
-    launch_nodes<V3, Src, 1>(src, p, C, n_t, nodes, st);
+    launch_nodes<Src, 1>(src, p, C, n_t, nodes, st);
   } else {
     switch (n_nodes) {
-      case 1: launch_nodes<V3, Src, 1>(src, p, C, n_t, nodes, st); break;
-      case 2: launch_nodes<V3, Src, 2>(src, p, C, n_t, nodes, st); break;
-      case 3: launch_nodes<V3, Src, 3>(src, p, C, n_t, nodes, st); break;
-      default: launch_nodes<V3, Src, 4>(src, p, C, n_t, nodes, st); break;
+      case 1: launch_nodes<Src, 1>(src, p, C, n_t, nodes, st); break;
+      case 2: launch_nodes<Src, 2>(src, p, C, n_t, nodes, st); break;
+      case 3: launch_nodes<Src, 3>(src, p, C, n_t, nodes, st); break;
+      default: launch_nodes<Src, 4>(src, p, C, n_t, nodes, st); break;
     }
   }
   return (int)cudaGetLastError();
 }
 
-template <bool V3>
+// Resident blocks per SM of one chi2_kernel_v3 instance at its dynamic
+// shared memory, read once per device, instance and size: the instance is
+// first opted into that much dynamic shared memory (above the 48 KB
+// default). Returns a CUDA error code, 0 on success.
+struct V3Setup {
+  const void* fn = nullptr;
+  int dev = -1, smem = 0, blocks = 0, sms = 0;
+};
+constexpr int V3_SETUPS = 64;
+
+int v3_setup(const void* fn, int smem, const V3Setup** out) {
+  static V3Setup setups[V3_SETUPS];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int i = 0;
+  for (; i < V3_SETUPS && setups[i].fn; ++i) {
+    if (setups[i].fn == fn && setups[i].dev == dev &&
+        setups[i].smem == smem) {
+      *out = &setups[i];
+      return 0;
+    }
+  }
+  if (i == V3_SETUPS) return (int)cudaErrorInvalidValue;
+  V3Setup su;
+  su.fn = fn;
+  su.dev = dev;
+  su.smem = smem;
+  err = cudaDeviceGetAttribute(&su.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&su.blocks, fn,
+                                                      V3_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (su.blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  setups[i] = su;
+  *out = &setups[i];
+  return 0;
+}
+
+// The chi2_kernel_v3 instance of a stage for the orbit source and node
+// count.
+template <class Stage>
+const void* v3_orbit_kernel(bool projected, int n_nodes) {
+  if (projected)
+    return (const void*)chi2_kernel_v3<OrbitSource<true>, 1, Stage>;
+  switch (n_nodes) {
+    case 1: return (const void*)chi2_kernel_v3<OrbitSource<false>, 1, Stage>;
+    case 2: return (const void*)chi2_kernel_v3<OrbitSource<false>, 2, Stage>;
+    case 3: return (const void*)chi2_kernel_v3<OrbitSource<false>, 3, Stage>;
+    default: return (const void*)chi2_kernel_v3<OrbitSource<false>, 4, Stage>;
+  }
+}
+
+template <class Src, int S, class Stage>
+int launch_v3_nodes(const Src& src, const Stage& st, int table_floats, int C,
+                    int n_t, const Nodes& nodes, cudaStream_t stream) {
+  const V3Setup* su = nullptr;
+  const int err = v3_setup((const void*)chi2_kernel_v3<Src, S, Stage>,
+                           v3_smem_bytes<Stage>(table_floats), &su);
+  if (err) return err;
+  // persistent: as many full blocks as fit at once, no more than the draws
+  // need; fewer draw groups than would fill every SM's block go to smaller
+  // blocks spread over the SMs
+  const int groups = C / V3_DRAWS;
+  const int warps =
+      std::max(1, std::min(V3_WARPS, (groups + su->sms - 1) / su->sms));
+  const int grid =
+      std::min(su->sms * su->blocks, (groups + warps - 1) / warps);
+  chi2_kernel_v3<Src, S, Stage>
+      <<<grid, warps * 32, v3_smem_bytes<Stage>(table_floats, warps),
+         stream>>>(src, st, C, n_t, nodes);
+  return (int)cudaGetLastError();
+}
+
+// Launch chi2_kernel_v3 over Src and Stage with S = n_nodes (1..4; the
+// projected orbit source has one node only); table_floats is the stage's
+// table in shared memory (0 for ExactStage). Returns a CUDA error code, 0
+// on success.
+template <class Src, class Stage>
+int launch_v3(const Src& src, const Stage& st, int table_floats, int C,
+              int n_t, const float* offs, const float* wgts, int n_nodes,
+              void* stream) {
+  if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
+    return (int)cudaErrorInvalidValue;
+  const int Cb = st.p.Cb;
+  if (C <= 0 || C % V3_DRAW_LANES || Cb <= 0 || C % Cb || Cb % 32)
+    return (int)cudaErrorInvalidValue;
+  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
+  cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (Src::kOneNode) {
+    return launch_v3_nodes<Src, 1>(src, st, table_floats, C, n_t, nodes, s);
+  } else {
+    switch (n_nodes) {
+      case 1:
+        return launch_v3_nodes<Src, 1>(src, st, table_floats, C, n_t, nodes,
+                                       s);
+      case 2:
+        return launch_v3_nodes<Src, 2>(src, st, table_floats, C, n_t, nodes,
+                                       s);
+      case 3:
+        return launch_v3_nodes<Src, 3>(src, st, table_floats, C, n_t, nodes,
+                                       s);
+      default:
+        return launch_v3_nodes<Src, 4>(src, st, table_floats, C, n_t, nodes,
+                                       s);
+    }
+  }
+}
+
+// Launch the v2 kernel (V3 false) or chi2_kernel_v3 with Stage over the
+// orbit of the draws; projected != 0 selects projected_z.
+template <bool V3, class Stage>
 int launch_orbit(const float* time, const float* P, const float* aR,
                  const float* inc, const float* e, const float* w,
-                 const Chi2Args& p, int C, int n_t, const float* offs,
-                 const float* wgts, int n_nodes, int projected,
-                 void* stream) {
-  if (projected)
-    return launch<V3>(OrbitSource<true>{time, P, aR, inc, e, w}, p, C, n_t,
-                      offs, wgts, n_nodes, stream);
-  return launch<V3>(OrbitSource<false>{time, P, aR, inc, e, w}, p, C, n_t,
+                 const Stage& st, int table_floats, int C, int n_t,
+                 const float* offs, const float* wgts, int n_nodes,
+                 int projected, void* stream) {
+  if constexpr (V3) {
+    if (projected)
+      return launch_v3(OrbitSource<true>{time, P, aR, inc, e, w}, st,
+                       table_floats, C, n_t, offs, wgts, n_nodes, stream);
+    return launch_v3(OrbitSource<false>{time, P, aR, inc, e, w}, st,
+                     table_floats, C, n_t, offs, wgts, n_nodes, stream);
+  } else {
+    if (projected)
+      return launch(OrbitSource<true>{time, P, aR, inc, e, w}, st, C, n_t,
                     offs, wgts, n_nodes, stream);
+    return launch(OrbitSource<false>{time, P, aR, inc, e, w}, st, C, n_t,
+                  offs, wgts, n_nodes, stream);
+  }
 }
 
 // chi2_kernel_tab's instances (the projected source at one node, the
@@ -979,7 +1409,7 @@ extern "C" int chi2_supersampled_launch(
     const float* cA, const float* cB1, const float* cB2, const float* seg,
     const float* g, const float* obs, float* out, int C, int n_t,
     const float* offs, const float* wgts, int n_nodes, void* stream) {
-  return launch<false>(PlaneSource<false>{q0, q1, q2, front, n_t},
+  return launch(PlaneSource<false>{q0, q1, q2, front, n_t},
                 Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}, C, n_t, offs,
                 wgts, n_nodes, stream);
 }
@@ -991,9 +1421,9 @@ extern "C" int chi2_supersampled_v3_launch(
     const float* seg, const float* g, const float* obs, float* out, int C,
     int n_t, const float* offs, const float* wgts, int n_nodes,
     void* stream) {
-  return launch<true>(PlaneSource<true>{q0t, q1t, q2t, frontt, C},
-                Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}, C, n_t, offs,
-                wgts, n_nodes, stream);
+  return launch_v3(PlaneSource<true>{q0t, q1t, q2t, frontt, C},
+                   ExactStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}}, 0,
+                   C, n_t, offs, wgts, n_nodes, stream);
 }
 
 // v2 on the orbit for B = C / Cb targets: time and obs (B, n_t); P, aR,
@@ -1006,20 +1436,39 @@ extern "C" int chi2_from_orbit_launch(
     float* out, int C, int n_t, const float* offs, const float* wgts,
     int n_nodes, int projected, int Cb, void* stream) {
   return launch_orbit<false>(time, P, aR, inc, e, w,
-                      Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}, C, n_t,
-                      offs, wgts, n_nodes, projected, stream);
+                             Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}, 0,
+                             C, n_t, offs, wgts, n_nodes, projected, stream);
 }
 
-// v3 on the orbit: the same arguments; Cb % 128 == 0.
+// v3 on the orbit: the same arguments; C % 128 == 0, Cb % 32 == 0.
 extern "C" int chi2_from_orbit_v3_launch(
     const float* time, const float* P, const float* aR, const float* inc,
     const float* e, const float* w, const float* cA, const float* cB1,
     const float* cB2, const float* seg, const float* g, const float* obs,
     float* out, int C, int n_t, const float* offs, const float* wgts,
     int n_nodes, int projected, int Cb, void* stream) {
+  return launch_orbit<true>(
+      time, P, aR, inc, e, w,
+      ExactStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}}, 0, C, n_t,
+      offs, wgts, n_nodes, projected, stream);
+}
+
+// v3 with the coefficients computed in the kernel (chi2_kernel_v3 with
+// TabStage): the arguments of chi2_from_orbit_tab_launch; C % 128 == 0,
+// Cb % 32 == 0.
+extern "C" int chi2_from_orbit_v3_tab_launch(
+    const float* time, const float* P, const float* aR, const float* inc,
+    const float* e, const float* w, const float* k, const float* u1,
+    const float* u2, const float* g, const float* obs, const float* tab,
+    float* out, int C, int n_t, const float* offs, const float* wgts,
+    int n_nodes, int projected, int Cb, const void* segs, void* stream) {
+  const TabSegs& ts = *static_cast<const TabSegs*>(segs);
+  if (!tab_segs_ok(ts)) return (int)cudaErrorInvalidValue;
   return launch_orbit<true>(time, P, aR, inc, e, w,
-                      Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}, C, n_t,
-                      offs, wgts, n_nodes, projected, stream);
+                            TabStage{TabArgs{k, u1, u2, g, obs, tab, out, Cb},
+                                     ts},
+                            tab_floats(ts.n_rows), C, n_t, offs, wgts,
+                            n_nodes, projected, stream);
 }
 
 
@@ -1082,6 +1531,36 @@ extern "C" int chi2_from_orbit_tab_info(int n_nodes, int projected,
   out[2] = su->blocks[i];
   out[3] = TAB_THREADS;
   out[4] = su->smem;
+  out[5] = su->sms;
+  return 0;
+}
+
+// What the compiler and the occupancy calculator give chi2_kernel_v3's
+// orbit instance for n_nodes and projected, with the tab stage (tab != 0,
+// a table of n_rows rows) or the exact one: out[0] registers a thread,
+// out[1] local memory bytes a thread (spills), out[2] resident blocks per
+// SM, out[3] threads a block, out[4] dynamic shared memory bytes a block,
+// out[5] the device's SMs.
+extern "C" int chi2_from_orbit_v3_info(int n_nodes, int projected, int tab,
+                                       int n_rows, int* out) {
+  if (n_nodes < 1 || n_nodes > MAX_NODES || (projected && n_nodes != 1) ||
+      (tab && n_rows < 1))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = tab ? v3_orbit_kernel<TabStage>(projected != 0, n_nodes)
+                       : v3_orbit_kernel<ExactStage>(projected != 0, n_nodes);
+  const int smem = tab ? v3_smem_bytes<TabStage>(tab_floats(n_rows))
+                       : v3_smem_bytes<ExactStage>(0);
+  const V3Setup* su = nullptr;
+  const int err = v3_setup(fn, smem, &su);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = su->blocks;
+  out[3] = V3_THREADS;
+  out[4] = smem;
   out[5] = su->sms;
   return 0;
 }

@@ -17,13 +17,18 @@ comes from:
   target-major, Cb = C / B per target, a multiple of the schedule's draw
   tile.
 
-The v2 schedule has a third orbit entry point, ``chi2_from_orbit_tab``
-(the main path on the card: ``ops/lightcurve.py::_chi2_fused``), which
-takes each draw's (k, u1, u2) instead of its deficit coefficients and
-computes ``fastcore.cheb_deficit_coeffs_tab`` inside the kernel from a
+Each schedule has a third orbit entry point, ``chi2_from_orbit_tab`` (v2,
+the main path on the card: ``ops/lightcurve.py::_chi2_fused``) and
+``chi2_from_orbit_v3_tab`` (v3), which takes each draw's (k, u1, u2)
+instead of its deficit coefficients and computes
+``fastcore.cheb_deficit_coeffs_tab`` inside the kernel from a
 shared-memory copy of the coefficient table, as the JAX package's
 ``_chi2_pallas`` does in one call. ``deficit_coeffs_tab`` runs that
 in-kernel coefficient stage alone, to check it; no path calls it.
+
+The v3 orbit kernels skip the Kepler solve outside each draw's transit
+window (``transit_window``, ``window_contains``: their plain twins, for
+tests and bounds; no path calls them).
 
 On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
 plain torch version (``chi2_supersampled_plain``,
@@ -31,15 +36,16 @@ plain torch version (``chi2_supersampled_plain``,
 ``fastcore.cheb_deficit_coeffs_tab``). There is no fallback between them.
 
 ``launches``, ``launches_v3``, ``launches_orbit``, ``launches_orbit_v3``,
-``launches_orbit_tab`` and ``launches_coeffs_tab`` count kernel launches
-(not plain-path calls), so a run can show which kernel its main path went
-through.
+``launches_orbit_tab``, ``launches_orbit_v3_tab`` and
+``launches_coeffs_tab`` count kernel launches (not plain-path calls), so a
+run can show which kernel its main path went through.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 from functools import lru_cache
@@ -47,7 +53,7 @@ from pathlib import Path
 
 import torch
 
-from ..core.kepler import projected_z
+from ..core.kepler import E_MAX, projected_z
 from ..tables import load_tables
 from .fastcore import (
     M_CHEB, TAB_SEGMENTS, _BREAK_FLOOR, _BREAK_SLOPE, _TAB_BREAKS, _TAB_DEGS,
@@ -56,6 +62,7 @@ from .fastcore import (
 
 DRAW_TILE = 256     # v2: C % DRAW_TILE == 0
 DRAW_LANES = 128    # v3: C % DRAW_LANES == 0
+V3_DRAWS = 8        # draws a warp of the v3 kernels takes at once
 MAX_NODES = 4
 
 launches = 0
@@ -63,7 +70,19 @@ launches_v3 = 0
 launches_orbit = 0
 launches_orbit_v3 = 0
 launches_orbit_tab = 0
+launches_orbit_v3_tab = 0
 launches_coeffs_tab = 0
+
+# The v3 kernels' transit-window margins (csrc/chi2_supersampled.cu,
+# transit_window): a pad in mean anomaly (rad), a relative margin for
+# float32 rounding of z^2, a per-point relative margin on |n t|, the
+# shortest true-anomaly arc whose mean-anomaly arc is trusted, and the
+# half width that stands for the whole orbit
+WIN_PAD = 1e-4
+WIN_REL = 1e-5
+WIN_REL_M = 1e-6
+WIN_MIN_ARC = 1e-3
+WIN_WHOLE = 4.0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("chi2_supersampled.cu",)
@@ -150,17 +169,23 @@ def _load():
             fn.argtypes = ([ctypes.c_void_p] * 13 + tail
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        lib.chi2_from_orbit_tab_launch.argtypes = (
-            [ctypes.c_void_p] * 13 + tail
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        for fn in (lib.chi2_from_orbit_tab_launch,
+                   lib.chi2_from_orbit_v3_tab_launch):
+            fn.argtypes = ([ctypes.c_void_p] * 13 + tail
+                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_void_p])
         lib.deficit_coeffs_tab_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                      ctypes.c_void_p])
         lib.chi2_from_orbit_tab_info.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.chi2_from_orbit_v3_info.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
         for fn in (lib.chi2_from_orbit_tab_launch,
+                   lib.chi2_from_orbit_v3_tab_launch,
                    lib.deficit_coeffs_tab_launch,
-                   lib.chi2_from_orbit_tab_info):
+                   lib.chi2_from_orbit_tab_info,
+                   lib.chi2_from_orbit_v3_info):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -246,10 +271,11 @@ _TAB_DRAW_ARGS = ("P", "a_R", "inc", "e", "w", "k", "u1", "u2", "g")
 
 
 def _check_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, offs,
-                     wgts, ns):
-    """``chi2_from_orbit_tab``'s checks, those of ``_check_orbit`` with
-    (k, u1, u2, g) (C,) in place of the coefficients; returns Cb."""
-    C, n_t, B, Cb = _orbit_layout(time, P, DRAW_TILE)
+                     wgts, ns, tile):
+    """``chi2_from_orbit_tab``'s and ``chi2_from_orbit_v3_tab``'s checks,
+    those of ``_check_orbit`` with (k, u1, u2, g) (C,) in place of the
+    coefficients; returns Cb."""
+    C, n_t, B, Cb = _orbit_layout(time, P, tile)
     draws = (P, a_R, inc, e, w, k, u1, u2, g)
     _check_arrays(dict(time=time, **dict(zip(_TAB_DRAW_ARGS, draws)),
                        obs_dev=obs_dev),
@@ -265,8 +291,8 @@ def chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg, g,
     """Plain torch version of both kernels (any device): the same function
     as ``chi2_supersampled`` and ``chi2_supersampled_v3``, on draw-major
     inputs. It evaluates every point; the kernels skip groups of points
-    that are out of transit (v2: 32 time points of one draw; v3: 32 draws
-    x 8 time points), which drops their ~1e-8 deficit residue at
+    that are out of transit (v2: 32 time points of one draw; v3: a time
+    step of 8 draws), which drops their ~1e-8 deficit residue at
     z >= zmax."""
     coeffs = (cA, cB1, cB2, *seg.unbind(1))
     Dbar = torch.zeros_like(q0)
@@ -444,9 +470,10 @@ def chi2_from_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
 
 def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
                        obs_dev, *, offs, wgts, ns):
-    """chi^2 for one draw chunk, v3 schedule (one thread per draw): the same
+    """chi^2 for one draw chunk, v3 schedule (draws on lanes): the same
     arguments, checks and result as ``chi2_from_orbit``, with Cb a multiple
-    of 128."""
+    of 128; the kernel skips the solve outside each draw's transit window,
+    as ``chi2_from_orbit_v3_tab`` does."""
     global launches_orbit_v3
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev)
@@ -500,15 +527,122 @@ def chi2_from_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, *,
     global launches_orbit_tab
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
-    Cb = _check_orbit_tab(*args, offs, wgts, ns)
+    Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_TILE)
     if not _device_path(P):
         return chi2_from_orbit_tab_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    segs = _tab_segs()
-    out = _launch("chi2_from_orbit_tab", (*args, _device_table(P.device)),
-                  P.shape[0], time.shape[-1], offs, wgts, int(ns == 1), Cb,
-                  ctypes.addressof(segs))
+    out = _launch_tab("chi2_from_orbit_tab", args, offs, wgts, ns, Cb)
     launches_orbit_tab += 1
     return out
+
+
+def _launch_tab(name, args, offs, wgts, ns, Cb):
+    """Launch a tab entry point on checked CUDA tensors ``args`` (those of
+    ``chi2_from_orbit_tab``), with the device's coefficient table and the
+    table's segments."""
+    time, P = args[0], args[1]
+    segs = _tab_segs()
+    return _launch(name, (*args, _device_table(P.device)), P.shape[0],
+                   time.shape[-1], offs, wgts, int(ns == 1), Cb,
+                   ctypes.addressof(segs))
+
+
+def chi2_from_orbit_v3_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
+                           *, offs, wgts, ns):
+    """chi^2 for one draw chunk, v3 schedule (draws on lanes), with the
+    exposure z^2 model and the tabulated deficit coefficients computed
+    inside the kernel: the arguments, checks and result of
+    ``chi2_from_orbit_tab``, with Cb a multiple of 128. The kernel solves
+    Kepler only at the exposures some draw of a warp may transit
+    (``transit_window``); the rest add nothing but obs^2, as a skipped
+    point of the v2 kernels does. A CPU tensor runs the plain version
+    (``chi2_from_orbit_tab_plain``)."""
+    global launches_orbit_v3_tab
+    offs, wgts = _nodes(offs, wgts)
+    args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
+    Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_LANES)
+    if not _device_path(P):
+        return chi2_from_orbit_tab_plain(*args, offs=offs, wgts=wgts, ns=ns)
+    out = _launch_tab("chi2_from_orbit_v3_tab", args, offs, wgts, ns, Cb)
+    launches_orbit_v3_tab += 1
+    return out
+
+
+def _ecc_anomaly(f, sm, sp):
+    """E of true anomaly f (``kepler.mean_anomaly_at_transit``'s map)."""
+    return 2.0 * torch.atan2(sm * torch.sin(f / 2.0), sp * torch.cos(f / 2.0))
+
+
+def _mean_arc(E1, E2, e):
+    """The mean anomaly swept going forward from E1 to E2."""
+    dE = E2 - E1
+    dE = dE - (2.0 * math.pi) * torch.floor(dE * (1.0 / (2.0 * math.pi)))
+    return dE - e * (torch.sin(E2) - torch.sin(E1))
+
+
+def transit_window(P, a_R, inc, e, w, zmax, offs):
+    """Plain version of the v3 kernels' per-draw transit window
+    (``csrc/chi2_supersampled.cu::transit_window``): (mid, half), each
+    (C,), such that an exposure centred at t can have a node in front of
+    the star with model z^2 < zmax^2 only if ``window_contains`` holds,
+    i.e. n t (n = 2 pi / P), wrapped to within pi of mid, lies within half
+    of mid; half < 0 never, half >= WIN_WHOLE the whole orbit. ``offs``
+    are the exposure nodes' offsets (days) from the centre.
+
+    z^2 = r^2 (cos^2 u + cos^2 i sin^2 u), u = w + f, r >= a_R (1 - e), so
+    z < zeff needs u within th of pi/2 (or of 3pi/2, behind the star).
+    zeff^2 is zmax^2 plus the most the quadratic z^2 model can undershoot
+    z^2 at a node (|d|^3 / 6 times a bound on |d^3 z^2 / dt^3| from the
+    orbit's speed, acceleration and jerk) and float32 margins. The ends of
+    the arc map to mean anomaly through E(f), padded by the nodes' spread
+    n max|d|; a centre in front whose nodes could reach the u = 3pi/2
+    branch makes the window the whole orbit."""
+    e = torch.clamp(e, 0.0, E_MAX)
+    n = (1.0 / P) * (2.0 * math.pi)
+    si, ci = torch.sin(inc), torch.cos(inc)
+    S, C = si * si, ci * ci
+    dmax = max(abs(float(o)) for o in offs)
+    ome, ope = 1.0 - e, 1.0 + e
+    rmin, rmax = a_R * ome, a_R * ope
+    V = a_R * n * torch.sqrt(ope / ome)
+    A = a_R * n * n / (ome * ome)
+    J = 4.0 * n * n * V / (ome * ome * ome)
+    T = (dmax ** 3 / 6.0 * (2.0 * rmax * J + 6.0 * V * A)
+         + WIN_REL * (rmax * rmax + 2.0 * rmax * V * dmax
+                      + (V * V + rmax * A) * dmax ** 2))
+    zeff2 = (zmax * zmax + T) * (1.0 + WIN_REL)
+    x = zeff2 / (rmin * rmin) - C
+    th = torch.asin(torch.sqrt(torch.clamp(x / S, 0.0, 1.0)))
+    spread = n * dmax + WIN_PAD
+    sm, sp = torch.sqrt(ome), torch.sqrt(ope)
+    fc = math.pi / 2.0 - w
+    Ec = _ecc_anomaly(fc, sm, sp)
+    a = _mean_arc(_ecc_anomaly(fc - th, sm, sp), Ec, e)
+    b = _mean_arc(Ec, _ecc_anomaly(fc + th, sm, sp), e)
+    fs = 1.5 * math.pi - w
+    gap = torch.minimum(
+        _mean_arc(_ecc_anomaly(math.pi - w, sm, sp),
+                  _ecc_anomaly(fs - th, sm, sp), e),
+        _mean_arc(_ecc_anomaly(fs + th, sm, sp), _ecc_anomaly(-w, sm, sp), e))
+    whole = ~(math.pi / 2.0 - th > WIN_MIN_ARC) | ~(gap > spread) | ~(
+        a + b + 2.0 * spread < 2.0 * math.pi)
+    half = torch.where(whole, torch.full_like(a, WIN_WHOLE),
+                       0.5 * (a + b) + spread)
+    half = torch.where(x > 0.0, half, torch.full_like(half, -1.0))
+    mid = torch.where((x > 0.0) & ~whole, 0.5 * (b - a),
+                      torch.zeros_like(a))
+    return mid, half
+
+
+def window_contains(time, P, mid, half):
+    """(C, n_t) bool: which exposure centres ``time`` (n_t,) lie in each
+    draw's window (mid, half of ``transit_window``), as the v3 kernels test
+    them before solving Kepler."""
+    n = ((1.0 / P) * (2.0 * math.pi))[:, None]
+    x = n * time[None, :]
+    y = x - mid[:, None]
+    yw = y - (2.0 * math.pi) * torch.round(y * (1.0 / (2.0 * math.pi)))
+    return (half[:, None] >= WIN_WHOLE) | (
+        torch.abs(yw) <= half[:, None] + WIN_REL_M * torch.abs(x))
 
 
 def deficit_coeffs_tab(k, u1, u2):
@@ -555,6 +689,26 @@ def tab_kernel_info(ns, n_nodes, device="cuda"):
                                            _tab_segs().n_rows, out)
     if err != 0:
         raise RuntimeError(f"chi2_from_orbit_tab_info failed: cudaError "
+                           f"{err}")
+    regs, local, blocks, threads, smem, sms = out
+    return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32, threads=threads,
+                smem_bytes=smem, sms=sms)
+
+
+def v3_kernel_info(ns, n_nodes, tab=True, device="cuda"):
+    """``tab_kernel_info`` for the v3 orbit kernel's instance (the tab
+    stage, or with ``tab=False`` the exact one of ``chi2_from_orbit_v3``):
+    registers and local memory bytes (spills) a thread, resident blocks and
+    warps per SM, threads and dynamic shared memory bytes a block, and the
+    SMs."""
+    lib = _load()
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(torch.device(device)):
+        err = lib.chi2_from_orbit_v3_info(n_nodes, int(ns == 1), int(tab),
+                                          _tab_segs().n_rows, out)
+    if err != 0:
+        raise RuntimeError(f"chi2_from_orbit_v3_info failed: cudaError "
                            f"{err}")
     regs, local, blocks, threads, smem, sms = out
     return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks,
