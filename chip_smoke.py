@@ -14,23 +14,32 @@ Drives the port's main path once at full size and checks it:
      setting), checks the setting came back, and that with the guard
      lifted the same call misses 3e-6; and holds the tab kernel's own
      coefficient function (chi2_core.deficit_coeffs_tab) on the same draws
-     to the CPU path within 3e-6;
-  3. compares each of the six kernels with its plain torch version on the
+     to the CPU path within 3e-6; and, under the same setting, the exact
+     kernel's coefficient function (chi2_core.deficit_coeffs_exact) to the
+     CPU's exact coefficients (fastcore.cheb_deficit_coeffs) within 3e-6,
+     and prints that instance's registers, local memory and warps per SM;
+  3. compares each of the seven kernels with its plain torch version on the
      card at the main path's shape (n_t = 100, GL-4), at long-curve shapes
      (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times them
      with CUDA events: the plane kernels at the old n_t-bound draw chunk,
      the orbit kernels at the main path's chunk (lightcurve.orbit_chunk)
      beside their yardstick, for orbit v2 / v3 exposure_z2_poly plus the
      plane kernel on the same draws (on the long curves both at the old
-     chunk, where the planes fit), for the tab kernels the torch
-     coefficient stage plus orbit v2 / v3, whose result they are also
-     gated against; prints the tab kernels' registers, local memory and
-     resident warps per SM, and for the v3 orbit kernels, which skip the
-     solve outside each draw's transit window, both bounds (window_bound,
+     chunk, where the planes fit), for the tab kernels the torch tab
+     coefficient stage plus orbit v2 / v3 and for the exact kernel the
+     torch exact stage plus orbit v2, whose result they are also gated
+     against (the exact kernel's plain version takes the v2 kernels' skip
+     rule, chi2_core.V2_GROUP: the float32 exact series keeps up to ~6e-6
+     beyond zmax, which every v2 kernel drops at the 32-point groups it
+     skips; the every-point plain version's distance is printed); prints
+     the orbit v2, tab and exact kernels'
+     registers, local memory and resident warps per SM, and for the v3
+     orbit kernels, which skip the solve outside each draw's transit
+     window, both bounds (window_bound,
      a solve inside the windows only, and a solve at every point), the
      share of (draw, point) pairs outside their draw's window (after
      checking that every active point lies inside it) and the tab kernel's
-     time on the same draws; then the four orbit kernels with a target
+     time on the same draws; then the five orbit kernels with a target
      axis, one launch over 8 targets x 1000192 draws (n_t = 100, GL-4,
      each target its own curve), against the plain version per target,
      draw for draw against one launch per target, and timed beside 8x the
@@ -42,17 +51,24 @@ Drives the port's main path once at full size and checks it:
      launched (no torch coefficient stage);
   5. reruns the same seed on the plain torch path and compares per-row
      lnZ; then under TRICERATOPS_COEFFS=exact (fastcore.COEFFS_BACKEND),
-     the torch exact coefficient stage into orbit v2: only orbit v2
-     launched, per-row lnZ within 1e-2 of the plain path on the same
-     coefficients (and the distance to 4 printed); then reruns it on the
+     the exact kernel, which computes the exact coefficients itself: only
+     it launched, once per row, per-row lnZ within 1e-2 of the plain path
+     on the same coefficients (and the distance to 4 printed); the same
+     seed on the torch-stage route (the torch exact coefficient stage into
+     orbit v2, the routing predicate naming no in-kernel stage): only
+     orbit v2 launched, once per row, per-row lnZ within 1e-2 of the exact
+     kernel's on the rows within 50 nats of the winner; three warm calls of
+     the exact kernel's route (seeds 2, 3, 4), their median and peak
+     device memory; then reruns it on the
      kernel path under TF32 (set_float32_matmul_precision("high")): per-row lnZ
      within 1e-2 of 4, and prints the same run's distance with the
      products' guard lifted;
   v3. reruns the same seed under the v3 schedule: only the v3 tab kernel
      launched, once per row, per-row lnZ as in 4; then one warm v3 call;
-     then the same seed under the v3 schedule and exact coefficients:
-     only orbit v3 launched, once per row, per-row lnZ within 1e-2 of 5's
-     exact run on the rows within 50 nats of the winner;
+     then the same seed under the v3 schedule and exact coefficients (the
+     torch exact stage into orbit v3): only orbit v3 launched, once per
+     row, per-row lnZ within 1e-2 of 5's exact run on the rows within 50
+     nats of the winner;
   long. runs the 21-row call on a seeded synthetic curve of
      bench_longlc.py's window shape (8055 points in |t| < 0.4 d, 2-min
      exposures, 4's planet) under schedules 2 and 3 on one seed: only the
@@ -91,7 +107,7 @@ Drives the port's main path once at full size and checks it:
      F1's TP and DTP rows against the JAX package's 100-key row record
      (parity/jax_rows.json).
 
-Prints a JSON line with the six kernels' numbers, then as its last line
+Prints a JSON line with the seven kernels' numbers, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
 CUDA card, and outside a checkout of the repository.
 
@@ -140,6 +156,14 @@ FLOPS_ORBIT_DRAW = 38
 # kappa map 6 and _segments 14
 FLOPS_TAB_TERM = 2 * 162 + 2
 FLOPS_TAB_DRAW = 54 * 5 + 10 + 6 + 14
+# The exact kernel's coefficient stage per draw (ExactStage), one operation
+# per + - * / and per sqrt, sin, cos, atan2, abs, min, max, compare or
+# select: per deficit (occult_deficit) 87 outside its Gauss-Legendre loop
+# and 19 per node of 11 (the one branch of G a node needs: G_big or
+# G_small, 5); per draw 54 deficits and their node positions (2 each), the
+# DCT's 54 x 18 multiply-adds (2 each) and _segments 14
+FLOPS_DEFICIT = 87 + 11 * 19
+FLOPS_EXACT_DRAW = 54 * (FLOPS_DEFICIT + 2) + 54 * 18 * 2 + 14
 # The v3 kernels' transit window per draw (transit_window), one operation
 # per + - * / and per sqrt, asin, sin, cos, atan2, floor or min: the
 # orbit's bounds and the model's margin 40, zeff and the arc's half width
@@ -158,7 +182,8 @@ N_LIKELIHOOD_ROWS = 100_000
 N_LIKELIHOOD_CHECK = 256
 COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
             "launches_orbit_tab", "launches_orbit_v3_tab",
-            "launches_coeffs_tab")
+            "launches_orbit_exact", "launches_coeffs_tab",
+            "launches_coeffs_exact")
 # phase 10: targets in the batch, the seed of their (Rp, P) rows and the
 # ranges they are drawn from [Re], [d]. At sigma = 4e-4 a planet of ~10 Re
 # or more makes the companion and background rows needles whose lnZ
@@ -231,7 +256,8 @@ def phase_build(chi2_core):
     dt = time.perf_counter() - t0
     print(f"phase 2: built {so.name} (chi2_supersampled, "
           f"chi2_supersampled_v3, chi2_from_orbit, chi2_from_orbit_v3, "
-          f"chi2_from_orbit_tab, chi2_from_orbit_v3_tab) in {dt:.2f} s")
+          f"chi2_from_orbit_tab, chi2_from_orbit_v3_tab, "
+          f"chi2_from_orbit_exact) in {dt:.2f} s")
     return dt
 
 
@@ -299,7 +325,43 @@ def phase_tf32_coeffs(torch):
           + ", ".join(f"{x:.3g}" for x in seg_err))
     check(e_kernel < TAB_TOL,
           f"the in-kernel tab coefficients differ by {e_kernel}")
-    return e, e_kernel
+
+    # the exact kernel's own coefficient function under the same setting
+    # (it runs no matmul) against the CPU's exact coefficients
+    want = fastcore.cheb_deficit_coeffs(*cpu)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = chi2_core.deficit_coeffs_exact(*(a.cuda() for a in cpu))
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    e_exact = max(float((g.cpu() - w).abs().max())
+                  for g, w in zip(got, want))
+    seg_err = [max(float((g.cpu()[a:b] - w[a:b]).abs().max())
+                   for g, w in zip(got, want))
+               for a, b in zip(bounds[:-1], bounds[1:])]
+    print(f"phase 2: the exact kernel's own coefficient function "
+          f"(deficit_coeffs_exact_launch) on the same {k.size} draws under "
+          f"TF32 vs the CPU's exact coefficients (cheb_deficit_coeffs): max "
+          f"|d| {e_exact:.3g} (gate {TAB_TOL}); per k-segment "
+          + ", ".join(f"{x:.3g}" for x in seg_err))
+    check(e_exact < TAB_TOL,
+          f"the in-kernel exact coefficients differ by {e_exact}")
+    for ns, S in ((NSAMPLES, 4), (1, 1)):
+        info = chi2_core.exact_kernel_info(ns, S)
+        print(f"phase 2: the exact kernel's instance at ns={ns} ({S} "
+              f"nodes): {_info_text(info)}")
+    return e, e_kernel, e_exact
+
+
+def _info_text(info):
+    """A kernel_info dict as phase 2 and 3 print it."""
+    return (f"{info['registers']} registers, {info['local_bytes']} bytes "
+            f"local a thread, {info['blocks_per_sm']} x {info['threads']}"
+            f"-thread blocks = {info['warps_per_sm']} warps per SM, "
+            f"{info['smem_bytes']} bytes shared a block, "
+            f"{info['sms'] * info['blocks_per_sm']} persistent blocks")
 
 
 def _draws(torch, C, n_t, ns, window, seed):
@@ -458,11 +520,12 @@ def _orbit_bytes(orbit, rest):
     return 4 * (sum(a.numel() for a in (*orbit, *rest)) + orbit[1].numel())
 
 
-def _tab_bytes(chi2_core, orbit, rest):
+def _tab_bytes(chi2_core, orbit, rest, table="tab_C"):
     """time, obs, the nine per-draw inputs (P, aR, inc, e, w, k, u1, u2, g)
-    read once, the coefficient table once, the output written once."""
+    read once, the stage's table (the tab kernels' coefficient table, or
+    the exact kernel's dct_T) once, the output written once."""
     t, obs = orbit[0], rest[5]
-    tab = chi2_core._device_table(t.device)
+    tab = chi2_core._device_table(t.device, table)
     return 4 * (t.numel() + obs.numel() + 10 * orbit[1].numel()
                 + tab.numel())
 
@@ -485,6 +548,15 @@ def tab_bound(chi2_core, orbit, rest, kud, offs, ns, counts):
     coefficient stage (_tab_flops)."""
     flops = _orbit_flops(counts, offs, ns) + _tab_flops(kud)
     return (*_bound(_tab_bytes(chi2_core, orbit, rest), flops),
+            _share(counts, "active"))
+
+
+def exact_bound(chi2_core, orbit, rest, kud, offs, ns, counts):
+    """(bound_ms, bound_by, active share) of chi2_from_orbit_exact on these
+    inputs. Bytes: _tab_bytes with dct_T. Operations: _orbit_flops plus
+    the exact coefficient stage (FLOPS_EXACT_DRAW per draw)."""
+    flops = _orbit_flops(counts, offs, ns) + kud[0].numel() * FLOPS_EXACT_DRAW
+    return (*_bound(_tab_bytes(chi2_core, orbit, rest, "dct_T"), flops),
             _share(counts, "active"))
 
 
@@ -511,27 +583,40 @@ def window_bound(chi2_core, orbit, rest, kud, offs, ns, counts, tab=True):
     return (*_bound(nbytes, flops), 1.0 - _share(counts, "inside"))
 
 
-def _gate(torch, name, kern, plain, C):
-    """The kernel-vs-plain gates on lnL = const - chi2 / (2 sigma^2)."""
+def _lnl_diff(torch, kern, plain, C, long_curve):
+    """|lnL kernel - lnL plain| per draw (lnL = const - chi2 / (2
+    sigma^2)), both lnL, its p99 and max over the draws (on a long curve
+    over those within 50 of the best plain lnL), and the distance of the
+    two lnZ."""
     from triceratops_tpu_torch.core.numerics import log_mean_exp_torch
 
     inv = 1.0 / (2.0 * SIGMA_GATE ** 2)
     lnL_k = (-kern.double() * inv).cpu().numpy()
     lnL_p = (-plain.double() * inv).cpu().numpy()
+    d = np.abs(lnL_k - lnL_p)
+    sel = lnL_p > lnL_p.max() - 50.0 if long_curve else slice(None)
+    dz = abs(float(log_mean_exp_torch(torch.as_tensor(lnL_k), C))
+             - float(log_mean_exp_torch(torch.as_tensor(lnL_p), C)))
+    return d, lnL_k, lnL_p, float(np.quantile(d[sel], 0.99)), float(
+        d[sel].max()), dz
+
+
+def _gate(torch, name, kern, plain, C):
+    """The kernel-vs-plain gates on lnL = const - chi2 / (2 sigma^2): the
+    same finite masks, lnL p99 < 0.05 and max < 1.0 (on a long curve on
+    the draws within 50 of the best, and relative gates on all), lnZ within
+    1e-2."""
+    long_curve = name.split()[0] in ("long", "full")
+    d, lnL_k, lnL_p, p99, dmax, dz = _lnl_diff(torch, kern, plain, C,
+                                               long_curve)
     check(np.array_equal(np.isfinite(lnL_k), np.isfinite(lnL_p)),
           f"{name}: finite masks differ")
-    d = np.abs(lnL_k - lnL_p)
-    long_curve = name.split()[0] in ("long", "full")
-    near = lnL_p > lnL_p.max() - 50.0 if long_curve else slice(None)
-    p99, dmax = float(np.quantile(d[near], 0.99)), float(d[near].max())
     check(p99 < 0.05 and dmax < 1.0, f"{name}: lnL diff p99 {p99} max {dmax}")
     if long_curve:
         rel = d / (np.abs(lnL_p) + 1.0)
         check(np.quantile(rel, 0.99) < 1e-3 and rel.max() < 2e-2,
               f"{name}: relative lnL diff {np.quantile(rel, 0.99)}, "
               f"{rel.max()}")
-    dz = abs(float(log_mean_exp_torch(torch.as_tensor(lnL_k), C))
-             - float(log_mean_exp_torch(torch.as_tensor(lnL_p), C)))
     check(dz < 1e-2, f"{name}: lnZ differs by {dz}")
     return p99, dmax, dz
 
@@ -651,8 +736,13 @@ def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
         bound_ms, bound_by, _ = (
             window_bound(chi2_core, *main[:2], main[4], offs, ns, counts,
                          tab=False) if v3 else every)
-        extra = (f" (window_bound; orbit_bound, a solve at every point, "
-                 f"{every[0]:.4f} ms)" if v3 else "")
+        if v3:
+            extra = (f" (window_bound; orbit_bound, a solve at every point, "
+                     f"{every[0]:.4f} ms)")
+            info = {}
+        else:
+            info = chi2_core.v2_kernel_info("copy", ns, len(offs))
+            extra = f"; {_info_text(info)}"
         print(f"phase 3: {name} {kname} n_t={n_t} nodes={len(offs)}: at "
               f"C={C_cmp} lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff "
               f"{dz:.3g}; kernel {cmp_ms:.4f} ms, yardstick (planes + "
@@ -666,47 +756,69 @@ def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
         row[kname] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           yardstick_ms=yard_ms, cmp_ms=cmp_ms, C=C_main,
-                          C_cmp=C_cmp)
+                          C_cmp=C_cmp, **info)
         if v3:
             row[kname]["bound_ms_every_point"] = every[0]
     targs = (*orbit, *kud, rest[5])
-    tab_plain = chi2_core.chi2_from_orbit_tab_plain(*targs, **kw)
-    tab_plain_ms = _median_ms(
-        torch, lambda: chi2_core.chi2_from_orbit_tab_plain(*targs, **kw),
-        reps=5)
-    for kname in ("chi2_from_orbit_tab", "chi2_from_orbit_v3_tab"):
+    plains = {}
+    for kname, (stage, _) in KUD_KERNELS.items():
+        if stage not in plains:
+            plain_fn = getattr(chi2_core, f"chi2_from_orbit_{stage}_plain")
+            plains[stage] = (plain_fn(*targs, **kw), _median_ms(
+                torch, lambda: plain_fn(*targs, **kw), reps=5))
         row[kname] = _tab_shape(torch, chi2_core, name, kname, ns,
                                 (orbit, rest, kud), main, kw, counts,
-                                tab_plain, tab_plain_ms,
+                                *plains[stage],
                                 row.get("chi2_from_orbit_tab"))
     return row
 
 
+def exact_plain(chi2_core, *args, **kw):
+    """The exact kernel's plain version under the v2 skip rule
+    (chi2_core.V2_GROUP): a point counts only in a 32-point group of its
+    draw with a point in transit, as in every v2 kernel. The float32 exact
+    series keeps up to ~6e-6 at z >= zmax, where the deficit is 0; without
+    the rule the plain version adds that at every out-of-transit point the
+    kernel skips (lnL p99 up to 0.68 on a 20,099-point curve)."""
+    return chi2_core.chi2_from_orbit_exact_plain(
+        *args, group=chi2_core.V2_GROUP, **kw)
+
+
+# The kernels that compute the coefficients themselves from (k, u1, u2):
+# their coefficient stage and schedule (the v2 tab kernel first: the v3
+# one's row quotes it)
+KUD_KERNELS = {"chi2_from_orbit_tab": ("tab", "2"),
+               "chi2_from_orbit_v3_tab": ("tab", "3"),
+               "chi2_from_orbit_exact": ("exact", "2")}
+
+
 def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
                plain, plain_ms, v2_tab):
-    """A tab kernel (kname: chi2_from_orbit_tab or chi2_from_orbit_v3_tab)
-    at one shape: on the comparison draws (cmp: orbit, rest, kud of
-    _draws) the gates against its plain version (plain, timed plain_ms)
-    and against its yardstick's result, the torch tab coefficient stage
-    fed to the schedule's exact orbit kernel (orbit v2, the main path
-    before the tab kernel, or orbit v3), and both times; on the main
-    path's draws (main, _draws' tuple; counts, their point_counts) the
-    time, the yardstick's time and the bound (tab_bound, or for v3
-    window_bound beside tab_bound); and the compiler's and occupancy
-    calculator's view of its instance. For v3, v2_tab is the tab kernel's
-    row on the same draws."""
+    """A kernel of KUD_KERNELS at one shape: on the comparison draws (cmp:
+    orbit, rest, kud of _draws) the gates against its plain version
+    (plain, timed plain_ms) and against its yardstick's result, the torch
+    coefficient stage of the same coefficients (tab or exact) fed to the
+    schedule's copy-stage orbit kernel (orbit v2, or orbit v3), and both
+    times; on the main path's draws (main, _draws' tuple; counts, their
+    point_counts) the time, the yardstick's time and the bound (tab_bound,
+    exact_bound, or for v3 window_bound beside tab_bound); and the
+    compiler's and occupancy calculator's view of its instance. For v3,
+    v2_tab is the tab kernel's row on the same draws."""
     from triceratops_tpu_torch.ops import fastcore
 
-    v3 = kname == "chi2_from_orbit_v3_tab"
+    stage, sched = KUD_KERNELS[kname]
+    v3 = sched == "3"
     orbit_fn = (chi2_core.chi2_from_orbit_v3 if v3
                 else chi2_core.chi2_from_orbit)
+    coeff_fn = (fastcore.cheb_deficit_coeffs if stage == "exact"
+                else fastcore.cheb_deficit_coeffs_tab)
 
     def tab_args(orbit, rest, kud):
         return (*orbit, *kud, rest[5])
 
     def yardstick(orbit, rest, kud):
         k, u1, u2, g = kud
-        cA, cB1, cB2, *segs = fastcore.cheb_deficit_coeffs_tab(k, u1, u2)
+        cA, cB1, cB2, *segs = coeff_fn(k, u1, u2)
         return orbit_fn(
             *orbit, cA.contiguous(), cB1.contiguous(), cB2.contiguous(),
             torch.stack(segs, 1), g[:, None], rest[5], **kw)
@@ -718,6 +830,17 @@ def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
     kern = fn(*args, **kw)
     yard = yardstick(*cmp)
     torch.cuda.synchronize()
+    vs_every = ""
+    if stage == "exact":
+        # gated against the plain version under the v2 skip rule
+        # (exact_plain); the every-point plain version (plain) is printed
+        every_pt = _lnl_diff(torch, kern, plain, C_cmp,
+                             name in ("long", "full"))
+        vs_every = (f" (under the v2 skip rule; against the every-point "
+                    f"plain version p99 {every_pt[3]:.3g} max "
+                    f"{every_pt[4]:.3g}, lnZ diff {every_pt[5]:.3g}, not "
+                    f"gated)")
+        plain = exact_plain(chi2_core, *args, **kw)
     p99, dmax, dz = _gate(torch, f"{name} {kname}", kern, plain, C_cmp)
     yp99, ydmax, ydz = _gate(torch, f"{name} {kname} vs yardstick", kern,
                              yard, C_cmp)
@@ -738,22 +861,24 @@ def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
                  f"{1.0 - _share(counts, 'warp'):.4f} outside every window "
                  f"of their warp (not solved); the tab kernel on the same "
                  f"draws {v2_tab['ms']:.4f} ms ({v2_tab['ms'] / ms:.3f}x)")
+    elif stage == "exact":
+        bound_ms, bound_by, _ = exact_bound(chi2_core, main[0], main[1],
+                                            main[4], kw["offs"], ns, counts)
+        info = chi2_core.exact_kernel_info(ns, S)
+        extra = ""
     else:
         bound_ms, bound_by, _ = every
         info = chi2_core.tab_kernel_info(ns, S)
         extra = ""
     print(f"phase 3: {name} {kname} n_t={n_t} nodes={S}: at C={C_cmp} vs "
-          f"plain lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff {dz:.3g}; "
-          f"vs yardstick (torch tab coefficients + {orbit_fn.__name__}) p99 "
-          f"{yp99:.3g} max {ydmax:.3g}, lnZ diff {ydz:.3g}; kernel "
-          f"{cmp_ms:.4f} ms, plain {plain_ms:.4f} ms; at C={C_main} kernel "
-          f"{ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}){extra}; {every[2]:.4f} of points in transit "
-          f"(medians); {info['registers']} registers, {info['local_bytes']} "
-          f"bytes local a thread, {info['blocks_per_sm']} x "
-          f"{info['threads']}-thread blocks = {info['warps_per_sm']} warps "
-          f"per SM, {info['smem_bytes']} bytes shared a block, "
-          f"{info['sms'] * info['blocks_per_sm']} persistent blocks")
+          f"plain lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff "
+          f"{dz:.3g}{vs_every}; "
+          f"vs yardstick (torch {stage} coefficients + "
+          f"{orbit_fn.__name__}) p99 {yp99:.3g} max {ydmax:.3g}, lnZ diff "
+          f"{ydz:.3g}; kernel {cmp_ms:.4f} ms, plain {plain_ms:.4f} ms; at "
+          f"C={C_main} kernel {ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}){extra}; {every[2]:.4f} of points "
+          f"in transit (medians); {_info_text(info)}")
     out = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, yardstick_ms=yard_ms,
                cmp_ms=cmp_ms, C=C_main, C_cmp=C_cmp, **info)
@@ -764,9 +889,6 @@ def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
     return out
 
 
-TAB_KERNELS = ("chi2_from_orbit_tab", "chi2_from_orbit_v3_tab")
-
-
 def phase_kernel_targets(torch, chi2_core, single):
     """Phase 3, the orbit kernels' target axis: one launch over N_BATCH
     targets x orbit_chunk(1e6) draws at n_t = 100, GL-4, each target its
@@ -775,8 +897,10 @@ def phase_kernel_targets(torch, chi2_core, single):
     draw to one launch per target, and timed beside N_BATCH x its
     one-target time at the same chunk (``single``, phase 3's slice shape)
     and the bound, the sum of the targets' bounds (orbit_bound, tab_bound,
-    window_bound for v3). The tab kernels' plain version on these draws is
-    the orbit plain version on the torch tab coefficients of ``_draws``."""
+    exact_bound, window_bound for v3). The tab kernels' plain version on
+    these draws is the orbit plain version on the torch tab coefficients
+    of ``_draws``; the exact kernel's is its own under the v2 skip rule
+    (exact_plain), as in phase 3."""
     from triceratops_tpu_torch.ops.lightcurve import orbit_chunk
 
     C, n_t = orbit_chunk(N_DRAWS), 100
@@ -789,6 +913,8 @@ def phase_kernel_targets(torch, chi2_core, single):
     rest = [torch.cat([p[1][i] for p in per]) for i in range(6)]
     kud = [torch.cat([p[4][i] for p in per]) for i in range(4)]
     plain = chi2_core.chi2_from_orbit_plain(*orbit, *rest, **kw)
+    plain_exact = torch.cat([exact_plain(chi2_core, *p[0], *p[4], p[1][5],
+                                         **kw) for p in per])
     counts = [point_counts(torch, chi2_core, p[0], p[1], offs, NSAMPLES)
               for p in per]
     bounds = {
@@ -802,10 +928,13 @@ def phase_kernel_targets(torch, chi2_core, single):
             for p, n in zip(per, counts)],
         "chi2_from_orbit_v3_tab": [
             window_bound(chi2_core, p[0], p[1], p[4], offs, NSAMPLES, n)
+            for p, n in zip(per, counts)],
+        "chi2_from_orbit_exact": [
+            exact_bound(chi2_core, p[0], p[1], p[4], offs, NSAMPLES, n)
             for p, n in zip(per, counts)]}
 
     def args(kname, o, r, k):
-        return (*o, *k, r[5]) if kname in TAB_KERNELS else (*o, *r)
+        return (*o, *k, r[5]) if kname in KUD_KERNELS else (*o, *r)
 
     out = {}
     for kname in bounds:
@@ -817,8 +946,10 @@ def phase_kernel_targets(torch, chi2_core, single):
         torch.cuda.synchronize()
         check(torch.equal(kern, singles), f"{kname}: the {N_BATCH}-target "
               "launch differs from one launch per target")
+        exact = kname == "chi2_from_orbit_exact"
+        ref = plain_exact if exact else plain
         gates = [_gate(torch, f"B={N_BATCH} target {b} {kname}",
-                       kern[b * C:(b + 1) * C], plain[b * C:(b + 1) * C], C)
+                       kern[b * C:(b + 1) * C], ref[b * C:(b + 1) * C], C)
                  for b in range(N_BATCH)]
         ms = _median_ms(torch, lambda: fn(*args(kname, orbit, rest, kud),
                                           **kw))
@@ -929,9 +1060,10 @@ def _only(c, name):
 def phase_slice(torch, chi2_core, tr, workdir):
     """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
     stars. Returns each kernel's launches in its path's run (the tab
-    kernel on the main path, orbit v2 under TRICERATOPS_COEFFS=exact, the
-    v3 tab kernel under the v3 schedule, orbit v3 under both), run, the
-    target and phase 6's median."""
+    kernel on the main path, the exact kernel under
+    TRICERATOPS_COEFFS=exact, orbit v2 on the torch-stage route under it,
+    the v3 tab kernel under the v3 schedule, orbit v3 under both), run,
+    the target and phase 6's median."""
     import contextlib
 
     from triceratops_tpu_torch.ops import fastcore, lightcurve
@@ -969,17 +1101,38 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{dz.max():.3g}")
     check(dz.max() < 1e-2, f"kernel and plain lnZ differ: {dz}")
 
-    # TRICERATOPS_COEFFS=exact: the exact torch coefficient stage into the
-    # orbit v2 kernel, the route that keeps orbit v2 on a path, held to the
-    # plain path on the same coefficients; its distance to phase 4 is the
-    # two coefficient backends' (not gated: a tab row sits ~1e-2 nats from
-    # its exact row, more on rows far below the winner)
+    # TRICERATOPS_COEFFS=exact: the exact kernel, which computes the exact
+    # coefficients itself, held to the plain path on the same coefficients;
+    # its distance to phase 4 is the two coefficient backends' (not gated:
+    # a tab row sits ~1e-2 nats from its exact row, more on rows far below
+    # the winner). Then the torch-stage route, the torch exact coefficient
+    # stage into orbit v2 (the routing predicate replaced by one that names
+    # no in-kernel stage), held to the exact kernel on the rows that carry
+    # weight; three warm calls of the exact kernel's route
+    def no_stage(*_):
+        return None
+
+    def warm():
+        torch.cuda.reset_peak_memory_stats()
+        walls = [run(seed) for seed in (2, 3, 4)]
+        return walls, torch.cuda.max_memory_allocated() / 2**30
+
     fastcore.COEFFS_BACKEND = "exact"
     try:
         _reset(chi2_core)
         wall_exact = run(1)
         exact_counts = _counts(chi2_core)
         lnZ_exact = t.lnZ.copy()
+        walls_exact, peak_exact = warm()
+        saved_route = lightcurve.in_kernel_coeffs
+        lightcurve.in_kernel_coeffs = no_stage
+        try:
+            _reset(chi2_core)
+            wall_stage = run(1)
+            stage_counts = _counts(chi2_core)
+            lnZ_stage = t.lnZ.copy()
+        finally:
+            lightcurve.in_kernel_coeffs = saved_route
         _reset(chi2_core)
         wall_exact_plain = run(1, backend="torch")
         check(not any(_counts(chi2_core).values()),
@@ -987,18 +1140,33 @@ def phase_slice(torch, chi2_core, tr, workdir):
     finally:
         fastcore.COEFFS_BACKEND = "auto"
     dz_exact = np.abs(lnZ_exact - t.lnZ)
-    print(f"phase 5: same seed under TRICERATOPS_COEFFS=exact (exact "
-          f"coefficients, orbit v2) {wall_exact:.3f} s, plain path "
-          f"{wall_exact_plain:.3f} s; launches {exact_counts}; per-row "
-          f"|lnZ kernel - lnZ plain| max {dz_exact.max():.3g}; per-row "
-          f"|lnZ exact - lnZ tab (phase 4)| max "
-          f"{np.abs(lnZ_exact - lnZ).max():.3g} (not gated)")
-    check(_only(exact_counts, "launches_orbit")
-          and exact_counts["launches_orbit"] == len(lnZ),
-          f"TRICERATOPS_COEFFS=exact must launch only orbit v2, once per "
-          f"row: {exact_counts}")
+    near = lnZ_stage > lnZ_stage.max() - LONG_NEAR_NATS
+    dz_stage = np.abs(lnZ_exact - lnZ_stage)
+    print(f"phase 5: same seed under TRICERATOPS_COEFFS=exact (the exact "
+          f"kernel) {wall_exact:.3f} s, plain path {wall_exact_plain:.3f} "
+          f"s; launches {exact_counts}; per-row |lnZ kernel - lnZ plain| "
+          f"max {dz_exact.max():.3g}; per-row |lnZ exact - lnZ tab (phase "
+          f"4)| max {np.abs(lnZ_exact - lnZ).max():.3g} (not gated)")
+    print(f"phase 5: exact kernel route warm walls {walls_exact} s, median "
+          f"{float(np.median(walls_exact)):.4f} s; peak device memory "
+          f"{peak_exact:.3f} GiB")
+    print(f"phase 5: same seed on the torch-stage route (torch exact "
+          f"coefficients + orbit v2) {wall_stage:.3f} s; launches "
+          f"{stage_counts}; per-row |lnZ exact kernel - lnZ torch "
+          f"stage| max {dz_stage.max():.3g}, on the rows within "
+          f"{LONG_NEAR_NATS} nats of the winner {dz_stage[near].max():.3g}")
+    check(_only(exact_counts, "launches_orbit_exact")
+          and exact_counts["launches_orbit_exact"] == len(lnZ),
+          f"TRICERATOPS_COEFFS=exact must launch only the exact kernel, "
+          f"once per row: {exact_counts}")
     check(dz_exact.max() < 1e-2,
-          f"exact-coefficient kernel and plain lnZ differ: {dz_exact}")
+          f"exact-kernel and plain lnZ differ: {dz_exact}")
+    check(_only(stage_counts, "launches_orbit")
+          and stage_counts["launches_orbit"] == len(lnZ),
+          f"the torch-stage route must launch only orbit v2, once per row: "
+          f"{stage_counts}")
+    check(dz_stage[near].max() < 1e-2,
+          f"the exact kernel and the torch-stage route differ: {dz_stage}")
 
     def run_tf32(guard=None):
         """run(1) under TF32, with the products' guard replaced by
@@ -1083,7 +1251,8 @@ def phase_slice(torch, chi2_core, tr, workdir):
     launches = dict(
         chi2_supersampled=main_counts["launches"],
         chi2_supersampled_v3=v3_counts["launches_v3"],
-        chi2_from_orbit=exact_counts["launches_orbit"],
+        chi2_from_orbit=stage_counts["launches_orbit"],
+        chi2_from_orbit_exact=exact_counts["launches_orbit_exact"],
         chi2_from_orbit_v3=v3_exact_counts["launches_orbit_v3"],
         chi2_from_orbit_tab=main_counts["launches_orbit_tab"],
         chi2_from_orbit_v3_tab=v3_counts["launches_orbit_v3_tab"])
@@ -1696,9 +1865,10 @@ def main():
     # kernels at their old 16384-draw chunk, the orbit kernels at
     # orbit_chunk(1e6); no single PyTorch call computes this function, so
     # no library time. Launches: the tab kernel in phase 10's warm batch
-    # call, orbit v2 in phase 5's TRICERATOPS_COEFFS=exact call, the v3
-    # tab kernel in phase v3's call and orbit v3 in its exact call, the
-    # plane kernels on no path. The v3 orbit kernels' bound_ms is
+    # call, the exact kernel in phase 5's TRICERATOPS_COEFFS=exact call,
+    # orbit v2 in phase 5's torch-stage route, the v3 tab kernel in phase
+    # v3's call and orbit v3 in its exact call, the plane kernels on no
+    # path. The v3 orbit kernels' bound_ms is
     # window_bound's (the solve inside each draw's window only, what they
     # run), bound_ms_every_point a solve at every point
     src = "triceratops_tpu_torch/csrc/chi2_supersampled.cu"
@@ -1712,7 +1882,9 @@ def main():
             ("chi2_from_orbit_tab",
              "triceratops_tpu/ops/pallas_core.py:120"),
             ("chi2_from_orbit_v3_tab",
-             "triceratops_tpu/ops/pallas_core.py:267")):
+             "triceratops_tpu/ops/pallas_core.py:267"),
+            ("chi2_from_orbit_exact",
+             "triceratops_tpu/ops/pallas_core.py:120")):
         k = timing["slice"][name]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[name],

@@ -12,13 +12,16 @@ under torch.profiler for the kernel launches, device time, idle share,
 CUDA kernel count, the top device ops and the host ranges.
 
     python3 profile_port.py [--tree DIR] [--walls] [--schedule 3]
+                            [--coeffs exact]
 
 --tree imports the port (triceratops_tpu_torch) from another checkout,
 e.g. an unpacked earlier commit, so that two trees are profiled by the
 same code in one run. --walls skips the kernel timing and the profile
 and prints only the warm walls. --schedule 3 runs every call under the
 v3 chi^2 schedule (ops/lightcurve.py::CHI2_SCHEDULE, what
-TRICERATOPS_PALLAS_V=3 selects). The plain torch path's profile is
+TRICERATOPS_PALLAS_V=3 selects). --coeffs exact runs every call on exact
+deficit coefficients (ops/fastcore.py::COEFFS_BACKEND, what
+TRICERATOPS_COEFFS=exact selects). The plain torch path's profile is
 ``chip_smoke.py --profile``.
 """
 
@@ -37,6 +40,9 @@ def main():
                     help="only the warm walls of chip_smoke.py's phase 6")
     ap.add_argument("--schedule", choices=("2", "3"), default="2",
                     help="the chi^2 kernel schedule of every call")
+    ap.add_argument("--coeffs", choices=("auto", "tab", "exact"),
+                    default="auto",
+                    help="the deficit coefficients of every call")
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     tree = Path(args.tree).resolve() if args.tree else here
@@ -48,20 +54,23 @@ def main():
 
     import torch
     import triceratops_tpu_torch.triceratops as tr
-    from triceratops_tpu_torch.ops import lightcurve
+    from triceratops_tpu_torch.ops import fastcore, lightcurve
 
     lightcurve.CHI2_SCHEDULE = args.schedule
+    fastcore.COEFFS_BACKEND = args.coeffs
     smoke.phase_device(torch)
     print(f"profile_port: package {Path(tr.__file__).resolve().parent.parent}"
-          f", schedule {args.schedule}")
+          f", schedule {args.schedule}, coefficients {args.coeffs}")
     if not args.walls:
         plane_kernel_ms(torch, smoke)
     with tempfile.TemporaryDirectory() as workdir:
         _, run = smoke.make_run(tr, workdir)
         print(f"profile_port: first call {run(1):.3f} s")
+        torch.cuda.reset_peak_memory_stats()
         walls = [run(seed) for seed in (2, 3, 4)]
         print(f"profile_port: warm calc_probs walls {walls} s, median "
-              f"{sorted(walls)[1]:.4f} s")
+              f"{sorted(walls)[1]:.4f} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         if not args.walls:
             smoke.phase_profile(torch, run, ("auto",))
     return 0

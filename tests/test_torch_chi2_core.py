@@ -248,7 +248,8 @@ class TestChi2Kernel:
 
 COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
             "launches_orbit_tab", "launches_orbit_v3_tab",
-            "launches_coeffs_tab")
+            "launches_orbit_exact", "launches_coeffs_tab",
+            "launches_coeffs_exact")
 
 
 def _counts():
@@ -501,41 +502,46 @@ class TestTabKernel:
             chi2_core.deficit_coeffs_tab(k[:0], u1[:0], u2[:0])
 
     def test_route(self, monkeypatch):
-        """``lightcurve.tab_in_kernel``: on a CUDA device tabulated
-        coefficients ("tab", or "auto" with float32 draws) take the
-        schedule's tab kernel, under v2 and v3 alike; "exact" or float64
-        draws under "auto" take the torch coefficient stage into the
-        schedule's orbit entry point; a CPU device always takes the latter
-        (its plain version). ``_chi2_fused`` calls the entry point the rule
-        and ``CHI2_SCHEDULE`` name, with (k, u1, u2) or the
-        coefficients."""
+        """``lightcurve.in_kernel_coeffs``: on a CUDA device tabulated
+        coefficients ("tab", or "auto" with float32 draws) name the tab
+        stage, under v2 and v3 alike; "exact" with float32 draws names the
+        exact stage under v2 and none under v3; float64 draws under "auto"
+        or "exact" name none (the torch coefficient stage into the
+        schedule's orbit entry point); a CPU device always names none (its
+        plain version). ``_chi2_fused`` calls the entry point the stage and
+        ``CHI2_SCHEDULE`` name, with (k, u1, u2) or the coefficients."""
         cuda, cpu = torch.device("cuda"), torch.device("cpu")
         f4, f8 = torch.float32, torch.float64
-        tab = tlc.tab_in_kernel
-        assert tab(cuda, f4, "auto")
-        assert tab("cuda:0", f4, "tab")
-        assert tab(cuda, f8, "tab")
-        assert not tab(cuda, f4, "exact")
-        assert not tab(cuda, f8, "auto")
-        for backend in ("auto", "tab", "exact"):
-            assert not tab(cpu, f4, backend)
+        route = tlc.in_kernel_coeffs
+        for sched in ("2", "3"):
+            assert route(cuda, f4, "auto", sched) == "tab"
+            assert route("cuda:0", f4, "tab", sched) == "tab"
+            assert route(cuda, f8, "tab", sched) == "tab"
+            assert route(cuda, f8, "auto", sched) is None
+            assert route(cuda, f8, "exact", sched) is None
+            for backend in ("auto", "tab", "exact"):
+                assert route(cpu, f4, backend, sched) is None
+        assert route(cuda, f4, "exact", "2") == "exact"
+        assert route(cuda, f4, "exact", "3") is None
 
         a = _tab_inputs(n_t=24)
         time, obs, k, P, aR, inc, e, w, u1, u2, g = map(torch.as_tensor, a)
         names = ("chi2_from_orbit_tab", "chi2_from_orbit_v3_tab",
-                 "chi2_from_orbit", "chi2_from_orbit_v3")
+                 "chi2_from_orbit_exact", "chi2_from_orbit",
+                 "chi2_from_orbit_v3")
         called = []
         for name in names:
             monkeypatch.setattr(
                 chi2_core, name,
                 lambda *xs, _n=name, **kw: called.append((_n, len(xs))))
-        for in_kernel, schedule, want in (
-                (True, "2", ("chi2_from_orbit_tab", 11)),
-                (True, "3", ("chi2_from_orbit_v3_tab", 11)),
-                (False, "2", ("chi2_from_orbit", 12)),
-                (False, "3", ("chi2_from_orbit_v3", 12))):
-            monkeypatch.setattr(tlc, "tab_in_kernel",
-                                lambda *_, _v=in_kernel: _v)
+        for stage, schedule, want in (
+                ("tab", "2", ("chi2_from_orbit_tab", 11)),
+                ("tab", "3", ("chi2_from_orbit_v3_tab", 11)),
+                ("exact", "2", ("chi2_from_orbit_exact", 11)),
+                (None, "2", ("chi2_from_orbit", 12)),
+                (None, "3", ("chi2_from_orbit_v3", 12))):
+            monkeypatch.setattr(tlc, "in_kernel_coeffs",
+                                lambda *_, _v=stage: _v)
             monkeypatch.setattr(tlc, "CHI2_SCHEDULE", schedule)
             called.clear()
             tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1, u2,

@@ -1,21 +1,23 @@
 // Fused exposure z^2 -> supersample -> Chebyshev deficit -> chi^2 for one
-// draw chunk: two schedules, each built over two z^2 sources chosen at
-// compile time, and in each schedule an orbit instance that also computes
-// the draws' deficit coefficients itself.
+// draw chunk, in two schedules. Each schedule is one kernel body, templated
+// on where the exposure z^2 model comes from (the z^2 source) and on where
+// each draw's deficit coefficients come from (the coefficient stage).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   * ops/pallas_core.py::chi2_supersampled (body _chi2_kernel, helper
-//     _clenshaw_tile; the v2 schedule): chi2_kernel and chi2_kernel_tab
-//     below;
+//     _clenshaw_tile; the v2 schedule): chi2_kernel_v2 below, with
+//     CopyStage, TabStage or ExactStage;
 //   * ops/pallas_core.py::chi2_supersampled_v3 (body _chi2_kernel_v3; the
-//     time-major v3 schedule): chi2_kernel_v3 below, with ExactStage or
-//     TabStage;
+//     time-major v3 schedule): chi2_kernel_v3 below, with V3CopyStage or
+//     V3TabStage;
 // and, with the orbit source, the XLA producer that fed them on the TPU
 // (ops/lightcurve.py::_chi2_pallas: exposure_z2_poly, or projected_z at
-// one node); chi2_kernel_tab and chi2_kernel_v3 with TabStage also replace
-// the rest of that producer, the tabulated coefficient stage
-// (ops/fastcore.py::cheb_deficit_coeffs_tab: one matmul per chunk on the
-// TPU's matrix unit). All compute the same function:
+// one node). The tab stages also replace the rest of that producer under
+// tabulated coefficients (ops/fastcore.py::cheb_deficit_coeffs_tab: one
+// matmul per chunk on the TPU's matrix unit), and ExactStage the rest
+// under exact ones (ops/fastcore.py::cheb_deficit_coeffs: the
+// occultation deficit of ops/occult.py at 54 nodes per draw, then a DCT
+// product). All compute the same function:
 //
 //   out[c] = sum_t gD (2 obs[t] + gD) + sum_t obs[t]^2,
 //   gD     = g[c] * front[c,t] * sum_s wgt[s] D_c(z_s),
@@ -32,52 +34,69 @@
 //     a_R, inc, e, w) and the exposure time: core/kepler.py::z2_taylor
 //     (one Markley + Householder-4 Kepler solve, closed-form derivatives)
 //     or, at one node, projected_z with q0 = z^2, q1 = q2 = 0.
+// The coefficient stage fills a warp's shared-memory slot with a draw's 3
+// x 18 coefficients and gives its five segment scalars:
+//   * CopyStage (v2) and V3CopyStage (v3) copy them from the (C, 18) x 3
+//     and (C, 5) arrays of a coefficient stage run before the kernel;
+//   * TabStage (v2) and V3TabStage (v3) compute the tabulated ones from
+//     (k, u1, u2) and the (152, 162) table the block staged in shared
+//     memory (tab_coeffs);
+//   * ExactStage (v2) computes the exact ones from (k, u1, u2): the
+//     deficit at the 3 x 18 Chebyshev nodes of the draw's z-segments
+//     (occult_deficit), then their DCT from the copy of dct_T the block
+//     staged in shared memory.
 //
 // What bounds it on an H100: with planes, 16 bytes per (draw, time) point
 // against ~16 flops to find a point out of transit, so bytes bound it (the
 // planes are 26 of the 30 MB a 16384 x 100 launch reads). The orbit source
-// reads 4 bytes per time point and 260 bytes per draw, and spends ~165
-// FP32 operations per point on the Kepler solve and the z^2 model (among
-// them an IEEE sin/cos pair, a cube root, a square root and fourteen
-// divisions, each several instructions), plus ~300 per point in transit
-// for the deficit at GL-4: operations bound it. chi2_kernel_tab reads 40
-// bytes per draw instead of 260 and adds ~2 deg 162 + 324 operations per
-// draw (deg <= 24, its k-segment's degree) for the coefficients: still
-// operations. On a folded curve most exposures of a long curve cannot be
-// in transit for a given draw; chi2_kernel_v3 finds them from ~160
-// operations per draw and ~8 per point, before any solve.
+// reads 4 bytes per time point and 28 per draw (orbit, g, the result)
+// besides the coefficients, and spends ~165 FP32 operations per point on the Kepler
+// solve and the z^2 model (among them an IEEE sin/cos pair, a cube root, a
+// square root and fourteen divisions, each several instructions), plus
+// ~300 per point in transit for the deficit at GL-4: operations bound it.
+// The copy stages read 236 bytes of coefficients per draw; the tab stages
+// read 12 and add ~2 deg 162 + 324 operations per draw (deg <= 24, its
+// k-segment's degree); the exact stage reads 12 and adds ~21,000: 54
+// deficits of ~350 operations (11 Gauss-Legendre nodes, each an IEEE cosf,
+// square root and division, and two atan2f) and a 54 x 18 DCT, about what
+// the point loop of a 100-point curve costs: still operations. On a folded
+// curve most exposures of a long curve cannot be in transit for a given
+// draw; chi2_kernel_v3 finds them from ~160 operations per draw and ~8 per
+// point, before any solve.
 //
 // What the design does about it:
 //   * point_deficit, the per-point work (sqrt map, recurrence with its
 //     segment select, clip, node weights), is one inlined device function
-//     that every kernel calls, templated on where the draw's 3 x 18
-//     coefficients live: in registers (DrawCoeffs: every lane holds all
-//     54, loaded from the (C, 18) arrays) or in the warp's shared-memory
-//     slot (SharedCoeffs: one copy per warp, the point's segment picks a
-//     row); the five segment scalars stay in registers; the recurrence is
-//     unrolled;
+//     that both bodies call, templated on how the slot is laid out
+//     (SharedCoeffs: one draw's 54 in a row, the point's segment picks a
+//     block; LaneCoeffs: draws in columns); the five segment scalars stay
+//     in registers; the recurrence is unrolled;
 //   * the orbit source keeps the (C, n_t) planes out of device memory
 //     altogether: its per-draw constants (clamped e, n, the mean anomaly at
 //     transit, sin/cos w, sin^2/cos^2 inc, sqrt(1 - e^2)) are computed once
 //     per warp (v2) or thread (v3), every point runs its own Kepler solve;
-//   * v2 (chi2_kernel): one warp per draw, lanes striding over time, so
-//     plane loads are coalesced and the orbit source keeps all lanes busy
-//     on the solve; a 32-point group in which no lane is in front with
-//     z < zmax at any node skips the square roots and the recurrence
-//     (__any_sync); the per-draw sum is a __shfl_xor_sync butterfly;
-//   * chi2_kernel_tab: the v2 schedule in persistent blocks (as many as
-//     fit on the card, from the occupancy calculator) whose warps walk the
-//     draws. Each block copies the (152, 162) coefficient table (98,496
-//     bytes) into shared memory once, with one TMA bulk copy completed on
-//     an mbarrier. Per draw the warp computes fastcore.py's tabulated
-//     coefficients itself (tab_coeffs: the k-segment's kappa, the
-//     Chebyshev recurrence in kappa, 27 lanes x 2 outputs of the three
-//     basis sums over the segment's table rows, the limb-darkening
-//     weights) into its own slot, then runs the v2 point loop on it. The
-//     (C, 152) and (C, 162) products of the torch stage and the (C, 59)
-//     coefficients never reach device memory, and freeing the 54
-//     coefficient registers lets 16-warp blocks run two to an SM (the
-//     table allows two copies per SM);
+//   * v2 (chi2_kernel_v2): persistent blocks of V2_WARPS warps, as many as
+//     fit on the card (the occupancy calculator; the launch bounds hold a
+//     thread to 64 registers, so two blocks, 32 warps, per SM), whose
+//     warps walk the draws, one draw a warp at a time. The stage fills the
+//     warp's slot (one copy of the 54 coefficients per warp: all 54 in
+//     every lane's registers took 106 registers a thread and allowed 16
+//     warps per SM), then lanes stride over time, so plane loads are
+//     coalesced and the orbit source keeps all lanes busy on the solve; a
+//     32-point group in which no lane is in front with z < zmax at any
+//     node skips the square roots and the recurrence (__any_sync); the
+//     per-draw sum is a __shfl_xor_sync butterfly. TabStage's block copies
+//     the (152, 162) coefficient table (98,496 bytes) into shared memory
+//     once, with one TMA bulk copy completed on an mbarrier (the table
+//     allows two copies per SM); per draw the warp computes the tabulated
+//     coefficients (tab_coeffs: the k-segment's kappa, the Chebyshev
+//     recurrence in kappa, 27 lanes x 2 outputs of the three basis sums
+//     over the segment's table rows, the limb-darkening weights). In
+//     ExactStage lanes 0-26 each evaluate two of the draw's 54 node
+//     deficits into the warp's scratch row, then each forms two
+//     coefficients from the scratch row and the block's dct_T. The (C, 18)
+//     coefficients, and the torch stages' (C, 152), (C, 162) or (C, 18,
+//     11) intermediates, never reach device memory;
 //   * v3 (chi2_kernel_v3): draws on lanes, as on the TPU (one draw per
 //     lane there): a warp takes V3_DRAWS = 8 consecutive draws, four lanes
 //     each, and walks the time axis four points a step, so the lanes of a
@@ -85,10 +104,10 @@
 //     Persistent blocks of 32 warps, one per SM (the most that 64
 //     registers a thread and the tab instance's table plus 32 slots in
 //     shared memory allow); a warp's draws keep their coefficients in its
-//     shared-memory slot, coefficient-major with an odd pitch (the exact
+//     shared-memory slot, coefficient-major with an odd pitch (the copy
 //     stage copies them from the (C, 18) arrays, the tab stage computes
 //     them with tab_coeffs from the table the block staged, one TMA bulk
-//     copy as chi2_kernel_tab). Per draw, before any solve, the orbit
+//     copy as TabStage). Per draw, before any solve, the orbit
 //     source bounds the mean-anomaly window outside which no node can be
 //     in transit (transit_window); per TIME_SUB steps each lane tests its
 //     points against its draw's window and the warp ORs the bits, so the
@@ -106,14 +125,11 @@
 // counterpart of jax.vmap over the Pallas call, whose grid gains a target
 // axis). The C draws are target-major, Cb = C / B per target, and draw c
 // reads its own target's exposure times and observed curve, rows
-// b = c / Cb of time (B, n_t) and obs (B, n_t). In chi2_kernel Cb is a
-// multiple of the block's draws, so a block never mixes targets: b is
-// computed from the block index, a value uniform over the block that the
-// compiler keeps in uniform registers, and the warp votes stay per
-// target. In chi2_kernel_tab a warp serves one draw at a time and in
-// chi2_kernel_v3 V3_DRAWS draws of one target (Cb % 32 == 0), so b is
-// uniform over the warp, and a draw's result does not depend on the launch
-// it is in. The plane entry points are one target (Cb = C).
+// b = c / Cb of time (B, n_t) and obs (B, n_t). In chi2_kernel_v2 a warp
+// serves one draw at a time and in chi2_kernel_v3 V3_DRAWS draws of one
+// target (Cb % 32 == 0), so b is uniform over the warp and the warp votes
+// stay per target, and a draw's result does not depend on the launch it is
+// in. The plane entry points are one target (Cb = C).
 //
 // Float32 semantics: square roots and divisions stay IEEE, sin/cos/atan2
 // are the accurate sinf/cosf/atan2f (no --use_fast_math, no __sinf), the
@@ -127,7 +143,10 @@
 // the Chebyshev recurrence in kappa is written the same way (a rounding
 // there grows with the degree); the basis sums and the weights are plain
 // FMAs, and every scalar of the table's segments is the float32 that
-// torch rounds fastcore.py's Python floats to. In chi2_kernel_v3 a lane
+// torch rounds fastcore.py's Python floats to. occult_deficit rounds every
+// + - * / on its own, as torch does, with occult.py's constants and
+// Gauss-Legendre nodes rounded to float32 as torch rounds them; its node
+// positions likewise; only the DCT sums are FMAs. In chi2_kernel_v3 a lane
 // sums a quarter of a whole curve, so its sum of gD (2 obs + gD) is
 // compensated (Kahan, with the same intrinsics) and sum obs^2 is taken in
 // double.
@@ -136,12 +155,12 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
 constexpr int M_CHEB = 18;
 constexpr int MAX_NODES = 4;
-constexpr int WARPS_PER_BLOCK = 8;
 // chi2_kernel_v3: warps per persistent block (one block of the tab
 // instance per SM holds the table and 32 warp slots, at most 64 registers
 // a thread), draws per warp and the lanes that share a draw (lane l takes
@@ -159,19 +178,27 @@ constexpr int V3_DRAW_LANES = 128;
 constexpr int TIME_SUB = 8;
 constexpr int V3_PITCH = V3_DRAWS + 1;
 constexpr int V3_SLOT = 3 * M_CHEB * V3_PITCH + 2;
-// chi2_kernel_tab: warps per block and blocks per SM the registers must
-// allow (2 x 16 warps: at most 64 registers a thread), floats per warp
-// slot, the coefficient table's segments and columns (3 z-segments x
-// M_CHEB x 3 basis functions), and the lanes that form the 54 outputs,
-// two each
-constexpr int TAB_WARPS = 16;
-constexpr int TAB_MIN_BLOCKS = 2;
-constexpr int TAB_THREADS = TAB_WARPS * 32;
-constexpr int TAB_SLOT = 64;
+// chi2_kernel_v2: warps per persistent block and blocks per SM the
+// registers must allow (2 x 16 warps: at most 64 registers a thread; the
+// tab stage's table allows two copies per SM), floats of one draw's
+// coefficient slot (A, B1, B2 rows of M_CHEB, padded), the lanes that form
+// the 54 coefficients, two each, and a row of the coefficient launches'
+// output (the 54, then zsplit, zmid, invA, invB1, invB2)
+constexpr int V2_WARPS = 16;
+constexpr int V2_MIN_BLOCKS = 2;
+constexpr int V2_THREADS = V2_WARPS * 32;
+constexpr int COEF_SLOT = 64;
+constexpr int OUT_LANES = 3 * M_CHEB / 2;
+constexpr int COEF_OUT = 3 * M_CHEB + 5;
+// the tab stages' coefficient table: k-segments and columns (3 z-segments
+// x M_CHEB x 3 basis functions)
 constexpr int TAB_SEGS = 8;
 constexpr int TAB_COLS = 3 * M_CHEB * 3;
-constexpr int TAB_OUT_LANES = 3 * M_CHEB / 2;
-constexpr int TAB_OUT = 3 * M_CHEB + 5;   // deficit_coeffs_tab_launch's row
+// ExactStage: occult.py's Gauss-Legendre order in float32, and the floats
+// of its table in shared memory (dct_T, M_CHEB x M_CHEB, then the M_CHEB
+// S-nodes, padded to 16 bytes)
+constexpr int N_GL = 11;
+constexpr int EXACT_TABLE = (M_CHEB * M_CHEB + M_CHEB + 3) / 4 * 4;
 
 // core/kepler.py's constants: each Python double rounded once to f32, as
 // torch and jax round a Python scalar that meets a float32 tensor
@@ -206,7 +233,7 @@ struct Nodes {
   float wgt[MAX_NODES];
 };
 
-// The per-draw inputs every kernel reads besides its z^2 source.
+// The per-draw inputs of the copy stages besides the z^2 source.
 struct Chi2Args {
   const float* cA;
   const float* cB1;
@@ -218,28 +245,11 @@ struct Chi2Args {
   int Cb;             // draws per target
 };
 
-// One draw's deficit coefficients and segment scalars, in registers.
-// segment() names the coefficient row of a point's z-segment and coef()
-// reads one coefficient of it (the accessor point_deficit is written
-// against).
-struct DrawCoeffs {
-  float a[M_CHEB], b1[M_CHEB], b2[M_CHEB];
-  float zsplit, zmid, invA, invB1, invB2, zmax2;
-
-  struct Seg {
-    bool inB1, inB2;
-  };
-  __device__ __forceinline__ Seg segment(bool inB1, bool inB2) const {
-    return {inB1, inB2};
-  }
-  __device__ __forceinline__ float coef(const Seg& sg, int m) const {
-    return sg.inB2 ? b2[m] : (sg.inB1 ? b1[m] : a[m]);
-  }
-};
-
 // One draw's coefficients in its warp's shared-memory slot, A at 0, B1 at
 // M_CHEB, B2 at 2 M_CHEB (the same m of the three rows in three banks),
-// and the segment scalars in registers.
+// and the segment scalars in registers. segment() names the coefficient
+// row of a point's z-segment and coef() reads one coefficient of it (the
+// accessor point_deficit is written against).
 struct SharedCoeffs {
   const float* slot;
   float zsplit, zmid, invA, invB1, invB2, zmax2;
@@ -252,23 +262,6 @@ struct SharedCoeffs {
     return sg[m];
   }
 };
-
-__device__ __forceinline__ void load_coeffs(DrawCoeffs& k, const Chi2Args& p,
-                                            int c) {
-#pragma unroll
-  for (int m = 0; m < M_CHEB; ++m) {
-    k.a[m] = __ldg(p.cA + (int64_t)c * M_CHEB + m);
-    k.b1[m] = __ldg(p.cB1 + (int64_t)c * M_CHEB + m);
-    k.b2[m] = __ldg(p.cB2 + (int64_t)c * M_CHEB + m);
-  }
-  k.zsplit = __ldg(p.seg + c * 5 + 0);
-  k.zmid = __ldg(p.seg + c * 5 + 1);
-  k.invA = __ldg(p.seg + c * 5 + 2);
-  k.invB1 = __ldg(p.seg + c * 5 + 3);
-  k.invB2 = __ldg(p.seg + c * 5 + 4);
-  const float zmax = k.zmid + 1.0f / k.invB2;
-  k.zmax2 = zmax * zmax;
-}
 
 // ---------------------------------------------------------------------------
 // z^2 sources. Each has target(row), the source for the target whose rows
@@ -560,8 +553,8 @@ __device__ __forceinline__ bool exposure_z2(float a0, float a1, float a2,
 }
 
 // Node-weighted mean deficit at one point: sqrt map, per-point segment
-// select, 18-step Clenshaw, clip to [0, 1]. Coeffs is DrawCoeffs or
-// SharedCoeffs.
+// select, 18-step Clenshaw, clip to [0, 1]. Coeffs is SharedCoeffs or
+// LaneCoeffs.
 template <int S, class Coeffs>
 __device__ __forceinline__ float point_deficit(const float (&z2)[S],
                                                const Coeffs& k,
@@ -627,28 +620,39 @@ __device__ __forceinline__ float draw_chi2(const Src& src,
   return acc;
 }
 
-template <class Src, int S>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-chi2_kernel(Src src_all, Chi2Args p, int C, int n_t, Nodes nodes) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (c >= C) return;  // whole warp leaves together
+// ---------------------------------------------------------------------------
+// Coefficient stages: what they share, and the tabulated coefficients.
 
-  // the block's target (Cb % WARPS_PER_BLOCK == 0)
-  const int64_t row =
-      (int64_t)((blockIdx.x * WARPS_PER_BLOCK) / p.Cb) * n_t;
-  const Src src = src_all.target(row);
-  DrawCoeffs k;
-  load_coeffs(k, p, c);
-  const float gc = __ldg(p.g + c);
-  const typename Src::Draw d = src.draw(c);
-  const float acc =
-      draw_chi2<Src, S>(src, d, k, gc, p.obs + row, n_t, nodes, lane);
-  if (lane == 0) p.out[c] = acc;
+// fastcore.py::_segments for one draw: the three z-segments' breaks and
+// widths (each width floored at 1e-6), from the unclipped k
+struct ZSegs {
+  float zsplit, zmid, wA, wB1, wB2;
+};
+
+__device__ __forceinline__ ZSegs z_segments(float kd, float slope,
+                                            float floor_) {
+  const float zsplit = fabsf(1.0f - kd);
+  const float zmax = 1.0f + kd;
+  const float c = fminf(fmaxf(slope * zsplit, floor_), (zmax - zsplit) / 2.0f);
+  const float zmid = zsplit + c;
+  return {zsplit, zmid, fmaxf(zsplit, 1e-6f), fmaxf(c, 1e-6f),
+          fmaxf(zmax - zmid, 1e-6f)};
 }
 
-// ---------------------------------------------------------------------------
-// The tabulated coefficient stage inside the kernel (chi2_kernel_tab).
+// The SharedCoeffs of a draw whose coefficients are in slot.
+__device__ __forceinline__ SharedCoeffs shared_coeffs(const float* slot,
+                                                      const ZSegs& zs) {
+  SharedCoeffs k;
+  k.slot = slot;
+  k.zsplit = zs.zsplit;
+  k.zmid = zs.zmid;
+  k.invA = 1.0f / zs.wA;
+  k.invB1 = 1.0f / zs.wB1;
+  k.invB2 = 1.0f / zs.wB2;
+  const float zm = k.zmid + 1.0f / k.invB2;
+  k.zmax2 = zm * zm;
+  return k;
+}
 
 // The coefficient table's k-segments (fastcore.py::_tab_kappa_onehot), each
 // scalar the float32 that torch rounds fastcore.py's Python float to.
@@ -664,24 +668,21 @@ struct TabSegs {
   int n_rows;             // rows of the table (sum of deg)
 };
 
-// The per-draw inputs of chi2_kernel_tab besides its orbit.
-struct TabArgs {
+// The per-draw inputs of the stages that compute the coefficients from
+// (k, u1, u2), besides the z^2 source.
+struct KudArgs {
   const float* k;
   const float* u1;
   const float* u2;
   const float* g;
-  const float* obs;   // (B, n_t), row c / Cb for draw c
-  const float* tab;   // (n_rows, TAB_COLS) in device memory
+  const float* obs;     // (B, n_t), row c / Cb for draw c
+  const float* table;   // the stage's table in device memory
   float* out;
-  int Cb;             // draws per target
+  int Cb;               // draws per target
 };
 
 __host__ __device__ constexpr int tab_floats(int n_rows) {
   return n_rows * TAB_COLS;
-}
-
-__host__ __device__ constexpr int tab_smem_bytes(int n_rows) {
-  return 4 * (tab_floats(n_rows) + TAB_WARPS * TAB_SLOT);
 }
 
 // Copy the table (bytes, a multiple of 16) from device memory into the
@@ -754,7 +755,7 @@ __device__ __forceinline__ void tab_coeffs(const float* tab,
   }
   const float kappa = fminf(fmaxf(2.0f * t - 1.0f, -1.0f), 1.0f);
 
-  if (lane < TAB_OUT_LANES) {
+  if (lane < OUT_LANES) {
     // basis sums sum_j T_j(kappa) tab[row0 + j, col] over this lane's six
     // columns (outputs 2 lane and 2 lane + 1, three basis functions each)
     const float2* col =
@@ -788,71 +789,298 @@ __device__ __forceinline__ void tab_coeffs(const float* tab,
   }
 
   // _segments on the unclipped k
-  const float zsplit = fabsf(1.0f - kd);
-  const float zmax = 1.0f + kd;
-  const float c =
-      fminf(fmaxf(ts.slope * zsplit, ts.floor_), (zmax - zsplit) / 2.0f);
-  const float zmid = zsplit + c;
-  k.slot = slot;
-  k.zsplit = zsplit;
-  k.zmid = zmid;
-  k.invA = 1.0f / fmaxf(zsplit, 1e-6f);
-  k.invB1 = 1.0f / fmaxf(c, 1e-6f);
-  k.invB2 = 1.0f / fmaxf(zmax - zmid, 1e-6f);
-  const float zm = k.zmid + 1.0f / k.invB2;
-  k.zmax2 = zm * zm;
+  k = shared_coeffs(slot, z_segments(kd, ts.slope, ts.floor_));
 }
 
-// The v2 schedule with the coefficients computed in the kernel: persistent
-// blocks, each staging the table once; warp w of the grid takes draws w,
-// w + (warps in the grid), ... At most 64 registers a thread at two blocks
-// per SM.
-template <class Src, int S>
-__global__ void __launch_bounds__(TAB_THREADS, TAB_MIN_BLOCKS)
-chi2_kernel_tab(Src src_all, TabArgs p, int C, int n_t, Nodes nodes,
-                const __grid_constant__ TabSegs ts) {
+// ---------------------------------------------------------------------------
+// The exact coefficient stage.
+
+// occult.py's Python floats as torch rounds them against float32 tensors
+constexpr float TWO_THIRDS = (float)(2.0 / 3.0);
+
+// ExactStage's constants: fastcore.py's S-nodes and _segments' break, and
+// occult.py's float32 Gauss-Legendre rule (sin^2 t_j and the weights of
+// _gl_tables(_N_GL_F32)), each rounded to float32 as torch rounds them.
+struct ExactConsts {
+  float s_nodes[M_CHEB];
+  float sin2t[N_GL];
+  float wgt[N_GL];
+  float slope, floor_;    // _BREAK_SLOPE, _BREAK_FLOOR
+};
+
+// occult.py::_stable_angle
+__device__ __forceinline__ float stable_angle(float num1, float num2,
+                                              float cos_2x) {
+  return atan2f(sqrtf(__fmul_rn(fmaxf(num1, 0.0f), fmaxf(num2, 0.0f))),
+                cos_2x);
+}
+
+// occult.py::occult_quad_deficit in float32 at one (p, z): the same
+// operations in the same order, each + - * / rounded on its own as torch
+// rounds it (the __f*_rn intrinsics keep nvcc from contracting them into
+// FMAs), on the Gauss-Legendre nodes of ExactConsts. D in [0, 1].
+__device__ __forceinline__ float occult_deficit(float p, float z, float u1,
+                                                float u2,
+                                                const ExactConsts& ec) {
+  z = fminf(fabsf(z), __fadd_rn(__fadd_rn(1.0f, p), 1.0f));
+  const float pp = __fmul_rn(p, p);
+  const float zz = __fmul_rn(z, z);
+  const float zmp = __fsub_rn(z, p), zpp = __fadd_rn(z, p);
+  const float zp2m = __fsub_rn(1.0f, __fmul_rn(zmp, zmp));
+  const float zp2p = __fsub_rn(__fmul_rn(zpp, zpp), 1.0f);
+  const float zm1 = __fsub_rn(z, 1.0f), zp1 = __fadd_rn(z, 1.0f);
+  const float kappa1 = stable_angle(__fsub_rn(pp, __fmul_rn(zm1, zm1)),
+                                    __fsub_rn(__fmul_rn(zp1, zp1), pp),
+                                    __fsub_rn(__fadd_rn(zz, 1.0f), pp));
+  const float eta0 =
+      stable_angle(zp2p, zp2m, __fsub_rn(__fsub_rn(1.0f, zz), pp));
+  const float d_eta = __fsub_rn(PI_F, eta0);
+  const float sin_eta0 = sinf(eta0);
+  const float cos_eta0 = cosf(eta0);
+
+  const float A0 = __fadd_rn(
+      kappa1, __fmul_rn(p, __fsub_rn(__fmul_rn(p, d_eta),
+                                     __fmul_rn(z, sin_eta0))));
+  const float zz_pp = __fadd_rn(zz, pp);
+  const float j1 = __fmul_rn(
+      -__fadd_rn(__fmul_rn(zz_pp, z), __fmul_rn(__fmul_rn(2.0f, z), pp)),
+      sin_eta0);
+  const float j2 = __fmul_rn(__fmul_rn(zz_pp, p), d_eta);
+  const float j3 = __fmul_rn(
+      __fmul_rn(__fmul_rn(2.0f, zz), p),
+      __fsub_rn(d_eta / 2.0f, __fmul_rn(sin_eta0, cos_eta0) / 2.0f));
+  const float J = __fadd_rn(kappa1 / 2.0f,
+                            __fmul_rn(__fmul_rn(2.0f, p) / 4.0f,
+                                      __fadd_rn(__fadd_rn(j1, j2), j3)));
+
+  // A1's quadrature over the occulter arc, eta = eta0 + d_eta sin^2 t
+  const float zp2 = __fmul_rn(__fmul_rn(2.0f, z), p);
+  float quad = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N_GL; ++j) {
+    const float cos_k = cosf(__fadd_rn(eta0, __fmul_rn(d_eta, ec.sin2t[j])));
+    const float r2 = __fadd_rn(zz_pp, __fmul_rn(zp2, cos_k));
+    const float one_m = fmaxf(__fsub_rn(1.0f, r2), 0.0f);
+    const bool big = r2 > 1e-3f;
+    const float G =
+        big ? __fsub_rn(1.0f, __fmul_rn(one_m, sqrtf(one_m))) /
+                  __fmul_rn(3.0f, r2)
+            : __fadd_rn(__fsub_rn(0.5f, r2 / 8.0f), __fmul_rn(r2, r2) / 48.0f);
+    const float integrand = __fmul_rn(G, __fadd_rn(__fmul_rn(z, cos_k), p));
+    quad = __fadd_rn(quad, __fmul_rn(ec.wgt[j], integrand));
+  }
+  const float A1 = __fadd_rn(__fmul_rn(TWO_THIRDS, kappa1),
+                             __fmul_rn(__fmul_rn(__fmul_rn(2.0f, p), d_eta),
+                                       quad));
+
+  const float omega = __fsub_rn(__fsub_rn(1.0f, u1 / 3.0f), u2 / 6.0f);
+  const float two_u2 = __fmul_rn(2.0f, u2);
+  const float D =
+      __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(__fsub_rn(1.0f, u1), two_u2),
+                                    A0),
+                          __fmul_rn(__fadd_rn(u1, two_u2), A1)),
+                __fmul_rn(u2, J)) /
+      __fmul_rn(PI_F, omega);
+  return fminf(fmaxf(D, 0.0f), 1.0f);
+}
+
+// ---------------------------------------------------------------------------
+// The v2 schedule (chi2_kernel_v2): a warp per draw.
+//
+// Its coefficient stages. Each says how many floats a warp needs besides
+// its slot (kScratch) and how many the block's table takes in shared
+// memory, stages that table (begin: every thread, ends synced), and fills
+// a warp's slot with one draw's 54 coefficients (fill: the whole warp;
+// returns the draw's SharedCoeffs, and the caller syncs the warp before
+// reading the slot); and says where the per-draw g, obs and out live.
+
+// The coefficients a coefficient stage made before the kernel ((C, 18) x 3
+// and seg (C, 5)), copied into the slot: plane v2 and orbit v2.
+struct CopyStage {
+  Chi2Args p;
+  static constexpr int kScratch = 0;
+
+  __host__ __device__ int table_floats() const { return 0; }
+  __device__ __forceinline__ void begin(float*) const {}
+
+  __device__ __forceinline__ SharedCoeffs fill(const float*, float*,
+                                               float* slot, int c,
+                                               int lane) const {
+    if (lane < M_CHEB) {
+      const int64_t i = (int64_t)c * M_CHEB + lane;
+      slot[lane] = __ldg(p.cA + i);
+      slot[M_CHEB + lane] = __ldg(p.cB1 + i);
+      slot[2 * M_CHEB + lane] = __ldg(p.cB2 + i);
+    }
+    SharedCoeffs k;
+    k.slot = slot;
+    k.zsplit = __ldg(p.seg + c * 5 + 0);
+    k.zmid = __ldg(p.seg + c * 5 + 1);
+    k.invA = __ldg(p.seg + c * 5 + 2);
+    k.invB1 = __ldg(p.seg + c * 5 + 3);
+    k.invB2 = __ldg(p.seg + c * 5 + 4);
+    const float zmax = k.zmid + 1.0f / k.invB2;
+    k.zmax2 = zmax * zmax;
+    return k;
+  }
+  __device__ __forceinline__ const float* g() const { return p.g; }
+  __device__ __forceinline__ const float* obs() const { return p.obs; }
+  __device__ __forceinline__ float* out() const { return p.out; }
+  __host__ __device__ int Cb() const { return p.Cb; }
+};
+
+// The tabulated coefficients (tab_coeffs) from the table the block staged
+// with one TMA bulk copy: the tab instance.
+struct TabStage {
+  KudArgs p;   // p.table: the (n_rows, TAB_COLS) table, 16-byte aligned
+  TabSegs ts;
+  static constexpr int kScratch = 0;
+
+  __host__ __device__ int table_floats() const {
+    return tab_floats(ts.n_rows);
+  }
+  __device__ __forceinline__ void begin(float* smem) const {
+    stage_table(smem, p.table, 4u * tab_floats(ts.n_rows));
+  }
+  __device__ __forceinline__ SharedCoeffs fill(const float* table, float*,
+                                               float* slot, int c,
+                                               int lane) const {
+    SharedCoeffs k;
+    tab_coeffs(table, ts, __ldg(p.k + c), __ldg(p.u1 + c), __ldg(p.u2 + c),
+               lane, slot, k);
+    return k;
+  }
+  __device__ __forceinline__ const float* g() const { return p.g; }
+  __device__ __forceinline__ const float* obs() const { return p.obs; }
+  __device__ __forceinline__ float* out() const { return p.out; }
+  __host__ __device__ int Cb() const { return p.Cb; }
+};
+
+// The exact coefficients (fastcore.py::cheb_deficit_coeffs): the deficit
+// at the 3 x M_CHEB Chebyshev nodes of the draw's z-segments, node j of
+// segment s at z = lo_s + w_s S_j (lo_A = 0), lanes 0..26 two nodes each
+// into the warp's scratch row; then lanes 0..26 two coefficients each,
+// c[s][m] = sum_j D[s][j] dct_T[j][m], from the block's copy of dct_T:
+// the exact instance.
+struct ExactStage {
+  KudArgs p;   // p.table: dct_T (M_CHEB, M_CHEB)
+  ExactConsts ec;
+  static constexpr int kScratch = COEF_SLOT;   // the 54 node deficits
+
+  __host__ __device__ int table_floats() const { return EXACT_TABLE; }
+  // dct_T, then the S-nodes
+  __device__ __forceinline__ void begin(float* smem) const {
+    for (int i = threadIdx.x; i < M_CHEB * M_CHEB; i += blockDim.x)
+      smem[i] = __ldg(p.table + i);
+    if (threadIdx.x < M_CHEB)
+      smem[M_CHEB * M_CHEB + threadIdx.x] = ec.s_nodes[threadIdx.x];
+    __syncthreads();
+  }
+  __device__ __forceinline__ SharedCoeffs fill(const float* table,
+                                               float* scratch, float* slot,
+                                               int c, int lane) const {
+    const float kd = __ldg(p.k + c), u1 = __ldg(p.u1 + c),
+                u2 = __ldg(p.u2 + c);
+    const ZSegs zs = z_segments(kd, ec.slope, ec.floor_);
+    // the lane's two nodes (or outputs) 2 lane, 2 lane + 1: segment s,
+    // index j0, j0 + 1 within it (M_CHEB is even)
+    const int s = 2 * lane / M_CHEB;
+    const int j0 = 2 * lane - s * M_CHEB;
+    if (lane < OUT_LANES) {
+      const float lo = s == 0 ? 0.0f : (s == 1 ? zs.zsplit : zs.zmid);
+      const float wd = s == 0 ? zs.wA : (s == 1 ? zs.wB1 : zs.wB2);
+      const float* s_nodes = table + M_CHEB * M_CHEB;
+      float D[2];
+#pragma unroll 1
+      for (int i = 0; i < 2; ++i)
+        D[i] = occult_deficit(
+            kd, __fadd_rn(lo, __fmul_rn(wd, s_nodes[j0 + i])), u1, u2, ec);
+      reinterpret_cast<float2*>(scratch)[lane] = make_float2(D[0], D[1]);
+    }
+    __syncwarp();
+    if (lane < OUT_LANES) {
+      const float* Ds = scratch + s * M_CHEB;
+      float c0 = 0.0f, c1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < M_CHEB; ++j) {
+        const float2 t =
+            *reinterpret_cast<const float2*>(table + j * M_CHEB + j0);
+        c0 = fmaf(Ds[j], t.x, c0);
+        c1 = fmaf(Ds[j], t.y, c1);
+      }
+      reinterpret_cast<float2*>(slot)[lane] = make_float2(c0, c1);
+    }
+    return shared_coeffs(slot, zs);
+  }
+  __device__ __forceinline__ const float* g() const { return p.g; }
+  __device__ __forceinline__ const float* obs() const { return p.obs; }
+  __device__ __forceinline__ float* out() const { return p.out; }
+  __host__ __device__ int Cb() const { return p.Cb; }
+};
+
+// Floats of a v2 warp's region (the stage's scratch, then the slot), and
+// the dynamic shared memory of a block: the stage's table and the warps'
+// regions.
+template <class Stage>
+__host__ __device__ constexpr int v2_warp_floats() {
+  return Stage::kScratch + COEF_SLOT;
+}
+
+template <class Stage>
+__host__ __device__ constexpr int v2_smem_bytes(int table_floats) {
+  return 4 * (table_floats + V2_WARPS * v2_warp_floats<Stage>());
+}
+
+// The v2 schedule in persistent blocks, each staging its stage's table
+// once; warp w of the grid takes draws w, w + (warps in the grid), ...: the
+// stage fills the warp's slot, then draw_chi2 runs the point loop on it.
+// At most 64 registers a thread at two blocks per SM.
+template <class Src, int S, class Stage>
+__global__ void __launch_bounds__(V2_THREADS, V2_MIN_BLOCKS)
+chi2_kernel_v2(Src src_all, const __grid_constant__ Stage st, int C,
+               int n_t, Nodes nodes) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* slot = smem + tab_floats(ts.n_rows) + warp * TAB_SLOT;
-  stage_table(smem, p.tab, 4u * tab_floats(ts.n_rows));
+  float* scratch =
+      smem + st.table_floats() + warp * v2_warp_floats<Stage>();
+  float* slot = scratch + Stage::kScratch;
+  st.begin(smem);
 
-  for (int c = blockIdx.x * TAB_WARPS + warp; c < C;
-       c += gridDim.x * TAB_WARPS) {
-    const int64_t row = (int64_t)(c / p.Cb) * n_t;   // the draw's target
+  for (int c = blockIdx.x * V2_WARPS + warp; c < C;
+       c += gridDim.x * V2_WARPS) {
+    const int64_t row = (int64_t)(c / st.Cb()) * n_t;   // the draw's target
     const Src src = src_all.target(row);
-    SharedCoeffs k;
-    tab_coeffs(smem, ts, __ldg(p.k + c), __ldg(p.u1 + c), __ldg(p.u2 + c),
-               lane, slot, k);
+    const SharedCoeffs k = st.fill(smem, scratch, slot, c, lane);
     __syncwarp();
-    const float gc = __ldg(p.g + c);
+    const float gc = __ldg(st.g() + c);
     const typename Src::Draw d = src.draw(c);
     const float acc =
-        draw_chi2<Src, S>(src, d, k, gc, p.obs + row, n_t, nodes, lane);
-    if (lane == 0) p.out[c] = acc;
+        draw_chi2<Src, S>(src, d, k, gc, st.obs() + row, n_t, nodes, lane);
+    if (lane == 0) st.out()[c] = acc;
     __syncwarp();   // every lane is done with the slot
   }
 }
 
-// tab_coeffs alone over C draws into out (C, TAB_OUT): the 54
-// coefficients (A, B1, B2 rows of M_CHEB) and zsplit, zmid, invA, invB1,
-// invB2; the same blocks, staging and slots as chi2_kernel_tab.
-__global__ void __launch_bounds__(TAB_THREADS)
-coeffs_tab_kernel(const float* kd, const float* u1, const float* u2,
-                  const float* tab, float* out, int C,
-                  const __grid_constant__ TabSegs ts) {
+// A stage's coefficients alone over C draws into out (C, COEF_OUT): the
+// 54 coefficients (A, B1, B2 rows of M_CHEB) and zsplit, zmid, invA,
+// invB1, invB2; the same blocks, staging and slots as chi2_kernel_v2.
+template <class Stage>
+__global__ void __launch_bounds__(V2_THREADS)
+coeffs_kernel(const __grid_constant__ Stage st, float* out, int C) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* slot = smem + tab_floats(ts.n_rows) + warp * TAB_SLOT;
-  stage_table(smem, tab, 4u * tab_floats(ts.n_rows));
+  float* scratch =
+      smem + st.table_floats() + warp * v2_warp_floats<Stage>();
+  float* slot = scratch + Stage::kScratch;
+  st.begin(smem);
 
-  for (int c = blockIdx.x * TAB_WARPS + warp; c < C;
-       c += gridDim.x * TAB_WARPS) {
-    SharedCoeffs k;
-    tab_coeffs(smem, ts, kd[c], u1[c], u2[c], lane, slot, k);
+  for (int c = blockIdx.x * V2_WARPS + warp; c < C;
+       c += gridDim.x * V2_WARPS) {
+    const SharedCoeffs k = st.fill(smem, scratch, slot, c, lane);
     __syncwarp();
-    float* o = out + (int64_t)c * TAB_OUT;
+    float* o = out + (int64_t)c * COEF_OUT;
     for (int i = lane; i < 3 * M_CHEB; i += 32) o[i] = slot[i];
     if (lane == 0) {
       o[3 * M_CHEB] = k.zsplit;
@@ -887,11 +1115,11 @@ struct LaneCoeffs {
 // The coefficient stages of chi2_kernel_v3. Each fills a warp's slot with
 // the V3_DRAWS draws c0 .. c0 + V3_DRAWS - 1 and returns the LaneCoeffs of
 // the lane's draw d (the caller syncs the warp before reading the slot),
-// and says where the per-draw g, obs and out live. ExactStage copies the coefficients the torch stage made
-// ((C, 18) x 3 and seg (C, 5)); TabStage computes the tabulated ones from
-// (k, u1, u2) with tab_coeffs, from the table the block staged in shared
-// memory.
-struct ExactStage {
+// and says where the per-draw g, obs and out live. V3CopyStage copies the
+// coefficients a stage before the kernel made ((C, 18) x 3 and seg (C,
+// 5)); V3TabStage computes the tabulated ones from (k, u1, u2) with
+// tab_coeffs, from the table the block staged in shared memory.
+struct V3CopyStage {
   Chi2Args p;
   static constexpr int kScratch = 0;   // floats a warp needs besides its slot
 
@@ -933,16 +1161,16 @@ struct ExactStage {
   __device__ __forceinline__ int Cb() const { return p.Cb; }
 };
 
-struct TabStage {
-  TabArgs p;
+struct V3TabStage {
+  KudArgs p;
   TabSegs ts;
-  static constexpr int kScratch = TAB_SLOT;   // tab_coeffs' output
+  static constexpr int kScratch = COEF_SLOT;   // tab_coeffs' output
 
   __device__ __forceinline__ int table_floats() const {
     return tab_floats(ts.n_rows);
   }
   __device__ __forceinline__ void begin(float* smem) const {
-    stage_table(smem, p.tab, 4u * tab_floats(ts.n_rows));
+    stage_table(smem, p.table, 4u * tab_floats(ts.n_rows));
   }
 
   // per draw i of the warp's: tab_coeffs into the scratch, then the 54
@@ -1108,73 +1336,62 @@ Nodes make_nodes(const float* offs, const float* wgts, int n_nodes) {
   return nodes;
 }
 
-template <class Src, int S>
-void launch_nodes(const Src& src, const Chi2Args& p, int C, int n_t,
-                  const Nodes& nodes, cudaStream_t st) {
-  chi2_kernel<Src, S><<<(C + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK,
-                        WARPS_PER_BLOCK * 32, 0, st>>>(src, p, C, n_t,
-                                                       nodes);
-}
-
-// Launch the v2 kernel over Src with S = n_nodes (1..4; the projected
-// orbit source has one node only). Returns cudaGetLastError().
-template <class Src>
-int launch(const Src& src, const Chi2Args& p, int C, int n_t,
-           const float* offs, const float* wgts, int n_nodes, void* stream) {
+// f(std::integral_constant<int, S>{}) with S = n_nodes (1..4; the
+// projected orbit source has one node only); cudaErrorInvalidValue for
+// another count.
+template <class Src, class F>
+int with_nodes(int n_nodes, F&& f) {
   if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
     return (int)cudaErrorInvalidValue;
-  if (p.Cb <= 0 || C % p.Cb || p.Cb % WARPS_PER_BLOCK)
-    return (int)cudaErrorInvalidValue;
-  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
-  cudaStream_t st = (cudaStream_t)stream;
   if constexpr (Src::kOneNode) {
-    launch_nodes<Src, 1>(src, p, C, n_t, nodes, st);
+    return f(std::integral_constant<int, 1>{});
   } else {
     switch (n_nodes) {
-      case 1: launch_nodes<Src, 1>(src, p, C, n_t, nodes, st); break;
-      case 2: launch_nodes<Src, 2>(src, p, C, n_t, nodes, st); break;
-      case 3: launch_nodes<Src, 3>(src, p, C, n_t, nodes, st); break;
-      default: launch_nodes<Src, 4>(src, p, C, n_t, nodes, st); break;
+      case 1: return f(std::integral_constant<int, 1>{});
+      case 2: return f(std::integral_constant<int, 2>{});
+      case 3: return f(std::integral_constant<int, 3>{});
+      default: return f(std::integral_constant<int, 4>{});
     }
   }
-  return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of one chi2_kernel_v3 instance at its dynamic
-// shared memory, read once per device, instance and size: the instance is
+// What one kernel instance gets at its block shape and dynamic shared
+// memory, read once per device, instance, block and size: the instance is
 // first opted into that much dynamic shared memory (above the 48 KB
-// default). Returns a CUDA error code, 0 on success.
-struct V3Setup {
+// default), then the occupancy calculator gives its resident blocks per
+// SM. Returns a CUDA error code, 0 on success.
+struct Setup {
   const void* fn = nullptr;
-  int dev = -1, smem = 0, blocks = 0, sms = 0;
+  int dev = -1, threads = 0, smem = 0, blocks = 0, sms = 0;
 };
-constexpr int V3_SETUPS = 64;
+constexpr int MAX_SETUPS = 128;
 
-int v3_setup(const void* fn, int smem, const V3Setup** out) {
-  static V3Setup setups[V3_SETUPS];
+int kernel_setup(const void* fn, int threads, int smem, const Setup** out) {
+  static Setup setups[MAX_SETUPS];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   int i = 0;
-  for (; i < V3_SETUPS && setups[i].fn; ++i) {
+  for (; i < MAX_SETUPS && setups[i].fn; ++i) {
     if (setups[i].fn == fn && setups[i].dev == dev &&
-        setups[i].smem == smem) {
+        setups[i].threads == threads && setups[i].smem == smem) {
       *out = &setups[i];
       return 0;
     }
   }
-  if (i == V3_SETUPS) return (int)cudaErrorInvalidValue;
-  V3Setup su;
+  if (i == MAX_SETUPS) return (int)cudaErrorInvalidValue;
+  Setup su;
   su.fn = fn;
   su.dev = dev;
+  su.threads = threads;
   su.smem = smem;
   err = cudaDeviceGetAttribute(&su.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&su.blocks, fn,
-                                                      V3_THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&su.blocks, fn, threads,
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   if (su.blocks < 1) return (int)cudaErrorInvalidConfiguration;
   setups[i] = su;
@@ -1182,26 +1399,87 @@ int v3_setup(const void* fn, int smem, const V3Setup** out) {
   return 0;
 }
 
-// The chi2_kernel_v3 instance of a stage for the orbit source and node
-// count.
-template <class Stage>
-const void* v3_orbit_kernel(bool projected, int n_nodes) {
-  if (projected)
-    return (const void*)chi2_kernel_v3<OrbitSource<true>, 1, Stage>;
-  switch (n_nodes) {
-    case 1: return (const void*)chi2_kernel_v3<OrbitSource<false>, 1, Stage>;
-    case 2: return (const void*)chi2_kernel_v3<OrbitSource<false>, 2, Stage>;
-    case 3: return (const void*)chi2_kernel_v3<OrbitSource<false>, 3, Stage>;
-    default: return (const void*)chi2_kernel_v3<OrbitSource<false>, 4, Stage>;
+// Registers, local memory (spills), resident blocks per SM, threads and
+// dynamic shared memory of a block, and the SMs, of instance fn at its
+// launch shape, into out[0..5]. Returns a CUDA error code, 0 on success.
+int kernel_info(const void* fn, int threads, int smem, int* out) {
+  const Setup* su = nullptr;
+  const int err = kernel_setup(fn, threads, smem, &su);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = su->blocks;
+  out[3] = threads;
+  out[4] = smem;
+  out[5] = su->sms;
+  return 0;
+}
+
+bool tab_segs_ok(const TabSegs& ts) {
+  if (ts.n_rows < 1 || (4 * tab_floats(ts.n_rows)) % 16) return false;
+  for (int g = 0; g < TAB_SEGS; ++g) {
+    if (ts.kind[g] < 0 || ts.kind[g] > 3 || ts.deg[g] < 1 ||
+        ts.row0[g] < 0 || ts.row0[g] + ts.deg[g] > ts.n_rows)
+      return false;
   }
+  return true;
+}
+
+// Blocks of a persistent v2 launch over C draws: as many as fit on the
+// device at once, no more than the draws' warps.
+int v2_grid(const Setup& su, int C) {
+  return std::min(su.sms * su.blocks, (C + V2_WARPS - 1) / V2_WARPS);
+}
+
+// Launch chi2_kernel_v2 over Src and Stage with S = n_nodes (1..4; the
+// projected orbit source has one node only). Returns a CUDA error code, 0
+// on success.
+template <class Src, class Stage>
+int launch_v2(const Src& src, const Stage& st, int C, int n_t,
+              const float* offs, const float* wgts, int n_nodes,
+              void* stream) {
+  const int Cb = st.Cb();
+  if (C <= 0 || Cb <= 0 || C % Cb) return (int)cudaErrorInvalidValue;
+  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
+  const int smem = v2_smem_bytes<Stage>(st.table_floats());
+  return with_nodes<Src>(n_nodes, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    const void* fn = (const void*)chi2_kernel_v2<Src, S, Stage>;
+    const Setup* su = nullptr;
+    const int err = kernel_setup(fn, V2_THREADS, smem, &su);
+    if (err) return err;
+    chi2_kernel_v2<Src, S, Stage>
+        <<<v2_grid(*su, C), V2_THREADS, smem, (cudaStream_t)stream>>>(
+            src, st, C, n_t, nodes);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Launch coeffs_kernel over Stage. Returns a CUDA error code, 0 on
+// success.
+template <class Stage>
+int launch_coeffs(const Stage& st, float* out, int C, void* stream) {
+  if (C <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = v2_smem_bytes<Stage>(st.table_floats());
+  const Setup* su = nullptr;
+  const int err =
+      kernel_setup((const void*)coeffs_kernel<Stage>, V2_THREADS, smem, &su);
+  if (err) return err;
+  coeffs_kernel<Stage><<<v2_grid(*su, C), V2_THREADS, smem,
+                         (cudaStream_t)stream>>>(st, out, C);
+  return (int)cudaGetLastError();
 }
 
 template <class Src, int S, class Stage>
 int launch_v3_nodes(const Src& src, const Stage& st, int table_floats, int C,
                     int n_t, const Nodes& nodes, cudaStream_t stream) {
-  const V3Setup* su = nullptr;
-  const int err = v3_setup((const void*)chi2_kernel_v3<Src, S, Stage>,
-                           v3_smem_bytes<Stage>(table_floats), &su);
+  const Setup* su = nullptr;
+  const int err = kernel_setup((const void*)chi2_kernel_v3<Src, S, Stage>,
+                               V3_THREADS, v3_smem_bytes<Stage>(table_floats),
+                               &su);
   if (err) return err;
   // persistent: as many full blocks as fit at once, no more than the draws
   // need; fewer draw groups than would fill every SM's block go to smaller
@@ -1219,41 +1497,24 @@ int launch_v3_nodes(const Src& src, const Stage& st, int table_floats, int C,
 
 // Launch chi2_kernel_v3 over Src and Stage with S = n_nodes (1..4; the
 // projected orbit source has one node only); table_floats is the stage's
-// table in shared memory (0 for ExactStage). Returns a CUDA error code, 0
+// table in shared memory (0 for V3CopyStage). Returns a CUDA error code, 0
 // on success.
 template <class Src, class Stage>
 int launch_v3(const Src& src, const Stage& st, int table_floats, int C,
               int n_t, const float* offs, const float* wgts, int n_nodes,
               void* stream) {
-  if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
-    return (int)cudaErrorInvalidValue;
   const int Cb = st.p.Cb;
   if (C <= 0 || C % V3_DRAW_LANES || Cb <= 0 || C % Cb || Cb % 32)
     return (int)cudaErrorInvalidValue;
   const Nodes nodes = make_nodes(offs, wgts, n_nodes);
-  cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (Src::kOneNode) {
-    return launch_v3_nodes<Src, 1>(src, st, table_floats, C, n_t, nodes, s);
-  } else {
-    switch (n_nodes) {
-      case 1:
-        return launch_v3_nodes<Src, 1>(src, st, table_floats, C, n_t, nodes,
-                                       s);
-      case 2:
-        return launch_v3_nodes<Src, 2>(src, st, table_floats, C, n_t, nodes,
-                                       s);
-      case 3:
-        return launch_v3_nodes<Src, 3>(src, st, table_floats, C, n_t, nodes,
-                                       s);
-      default:
-        return launch_v3_nodes<Src, 4>(src, st, table_floats, C, n_t, nodes,
-                                       s);
-    }
-  }
+  return with_nodes<Src>(n_nodes, [&](auto s) {
+    return launch_v3_nodes<Src, decltype(s)::value>(
+        src, st, table_floats, C, n_t, nodes, (cudaStream_t)stream);
+  });
 }
 
-// Launch the v2 kernel (V3 false) or chi2_kernel_v3 with Stage over the
-// orbit of the draws; projected != 0 selects projected_z.
+// Launch chi2_kernel_v2 (V3 false) or chi2_kernel_v3 (true) with Stage over
+// the orbit of the draws; projected != 0 selects projected_z.
 template <bool V3, class Stage>
 int launch_orbit(const float* time, const float* P, const float* aR,
                  const float* inc, const float* e, const float* w,
@@ -1268,140 +1529,46 @@ int launch_orbit(const float* time, const float* P, const float* aR,
                      table_floats, C, n_t, offs, wgts, n_nodes, stream);
   } else {
     if (projected)
-      return launch(OrbitSource<true>{time, P, aR, inc, e, w}, st, C, n_t,
-                    offs, wgts, n_nodes, stream);
-    return launch(OrbitSource<false>{time, P, aR, inc, e, w}, st, C, n_t,
-                  offs, wgts, n_nodes, stream);
+      return launch_v2(OrbitSource<true>{time, P, aR, inc, e, w}, st, C, n_t,
+                       offs, wgts, n_nodes, stream);
+    return launch_v2(OrbitSource<false>{time, P, aR, inc, e, w}, st, C, n_t,
+                     offs, wgts, n_nodes, stream);
   }
 }
 
-// chi2_kernel_tab's instances (the projected source at one node, the
-// Taylor source at 1..4 nodes) and coeffs_tab_kernel.
-constexpr int TAB_KERNELS = 6;
-constexpr int TAB_COEFFS_KERNEL = TAB_KERNELS - 1;
-constexpr int MAX_DEVICES = 64;
-
-const void* tab_kernel(int i) {
-  switch (i) {
-    case 0: return (const void*)chi2_kernel_tab<OrbitSource<true>, 1>;
-    case 1: return (const void*)chi2_kernel_tab<OrbitSource<false>, 1>;
-    case 2: return (const void*)chi2_kernel_tab<OrbitSource<false>, 2>;
-    case 3: return (const void*)chi2_kernel_tab<OrbitSource<false>, 3>;
-    case 4: return (const void*)chi2_kernel_tab<OrbitSource<false>, 4>;
-    default: return (const void*)coeffs_tab_kernel;
-  }
+// The v2 (V3 false) or v3 orbit instance of Stage for projected and
+// n_nodes (nullptr for a count the source does not take).
+template <bool V3, class Stage>
+const void* orbit_kernel(bool projected, int n_nodes) {
+  const void* fn = nullptr;
+  auto pick = [&](auto src) {
+    using Src = decltype(src);
+    return with_nodes<Src>(n_nodes, [&](auto s) {
+      constexpr int S = decltype(s)::value;
+      if constexpr (V3)
+        fn = (const void*)chi2_kernel_v3<Src, S, Stage>;
+      else
+        fn = (const void*)chi2_kernel_v2<Src, S, Stage>;
+      return 0;
+    });
+  };
+  if (projected)
+    pick(OrbitSource<true>{});
+  else
+    pick(OrbitSource<false>{});
+  return fn;
 }
 
-// The instance of chi2_kernel_tab for a source and node count.
-int tab_index(bool projected, int n_nodes) {
-  return projected ? 0 : n_nodes;
-}
-
-struct TabSetup {
-  int smem = 0;                   // dynamic shared memory a block, bytes
-  int sms = 0;                    // the device's SMs
-  int blocks[TAB_KERNELS] = {};   // resident blocks per SM, per instance
-};
-
-// Opt every instance into the dynamic shared memory of a table of n_rows
-// rows (above the 48 KB default) and read how many of its blocks fit on an
-// SM: once per device and table size, before the first launch. Returns a
-// CUDA error code, 0 on success.
-int tab_setup(int n_rows, const TabSetup** out) {
-  static TabSetup setups[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  const int smem = tab_smem_bytes(n_rows);
-  if (setups[dev].smem != smem) {
-    TabSetup su;
-    err = cudaDeviceGetAttribute(&su.sms, cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return (int)err;
-    for (int i = 0; i < TAB_KERNELS; ++i) {
-      err = cudaFuncSetAttribute(tab_kernel(i),
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &su.blocks[i], tab_kernel(i), TAB_THREADS, smem);
-      if (err != cudaSuccess) return (int)err;
-      if (su.blocks[i] < 1) return (int)cudaErrorInvalidConfiguration;
-    }
-    su.smem = smem;
-    setups[dev] = su;
-  }
-  *out = &setups[dev];
-  return 0;
-}
-
-bool tab_segs_ok(const TabSegs& ts) {
-  if (ts.n_rows < 1 || (4 * tab_floats(ts.n_rows)) % 16) return false;
-  for (int g = 0; g < TAB_SEGS; ++g) {
-    if (ts.kind[g] < 0 || ts.kind[g] > 3 || ts.deg[g] < 1 ||
-        ts.row0[g] < 0 || ts.row0[g] + ts.deg[g] > ts.n_rows)
-      return false;
-  }
-  return true;
-}
-
-// Blocks of a persistent launch of instance i over C draws: as many as fit
-// on the device at once, no more than the draws' warps.
-int tab_grid(const TabSetup& su, int i, int C) {
-  return std::min(su.sms * su.blocks[i], (C + TAB_WARPS - 1) / TAB_WARPS);
-}
-
-template <class Src, int S>
-void launch_tab_nodes(const TabSetup& su, const Src& src, const TabArgs& p,
-                      int C, int n_t, const Nodes& nodes, const TabSegs& ts,
-                      cudaStream_t st) {
-  chi2_kernel_tab<Src, S>
-      <<<tab_grid(su, tab_index(Src::kOneNode, S), C), TAB_THREADS, su.smem,
-         st>>>(src, p, C, n_t, nodes, ts);
-}
-
-// Launch chi2_kernel_tab over Src with S = n_nodes (1..4; the projected
-// source has one node only). Returns a CUDA error code, 0 on success.
-template <class Src>
-int launch_tab(const Src& src, const TabArgs& p, int C, int n_t,
-               const float* offs, const float* wgts, int n_nodes,
-               const TabSegs& ts, void* stream) {
-  if (n_nodes < 1 || n_nodes > MAX_NODES || (Src::kOneNode && n_nodes != 1))
-    return (int)cudaErrorInvalidValue;
-  if (C <= 0 || p.Cb <= 0 || C % p.Cb || !tab_segs_ok(ts))
-    return (int)cudaErrorInvalidValue;
-  const TabSetup* su = nullptr;
-  const int err = tab_setup(ts.n_rows, &su);
-  if (err) return err;
-  const Nodes nodes = make_nodes(offs, wgts, n_nodes);
-  cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (Src::kOneNode) {
-    launch_tab_nodes<Src, 1>(*su, src, p, C, n_t, nodes, ts, st);
-  } else {
-    switch (n_nodes) {
-      case 1:
-        launch_tab_nodes<Src, 1>(*su, src, p, C, n_t, nodes, ts, st);
-        break;
-      case 2:
-        launch_tab_nodes<Src, 2>(*su, src, p, C, n_t, nodes, ts, st);
-        break;
-      case 3:
-        launch_tab_nodes<Src, 3>(*su, src, p, C, n_t, nodes, ts, st);
-        break;
-      default:
-        launch_tab_nodes<Src, 4>(*su, src, p, C, n_t, nodes, ts, st);
-        break;
-    }
-  }
-  return (int)cudaGetLastError();
-}
+// v2 stage codes of the info entry point
+constexpr int STAGE_COPY = 0;
+constexpr int STAGE_TAB = 1;
+constexpr int STAGE_EXACT = 2;
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Pointers are device pointers
-// except offs/wgts, which are host arrays of n_nodes floats. Each returns
-// cudaGetLastError() after the launch.
+// except offs/wgts, which are host arrays of n_nodes floats, and segs /
+// consts, host structs. Each returns cudaGetLastError() after the launch.
 
 // v2 on planes: q0, q1, q2, front are draw-major (C, n_t).
 extern "C" int chi2_supersampled_launch(
@@ -1409,9 +1576,9 @@ extern "C" int chi2_supersampled_launch(
     const float* cA, const float* cB1, const float* cB2, const float* seg,
     const float* g, const float* obs, float* out, int C, int n_t,
     const float* offs, const float* wgts, int n_nodes, void* stream) {
-  return launch(PlaneSource<false>{q0, q1, q2, front, n_t},
-                Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}, C, n_t, offs,
-                wgts, n_nodes, stream);
+  return launch_v2(PlaneSource<false>{q0, q1, q2, front, n_t},
+                   CopyStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}}, C,
+                   n_t, offs, wgts, n_nodes, stream);
 }
 
 // v3 on planes: q0t, q1t, q2t, frontt are time-major (n_t, C); C % 128 == 0.
@@ -1422,8 +1589,8 @@ extern "C" int chi2_supersampled_v3_launch(
     int n_t, const float* offs, const float* wgts, int n_nodes,
     void* stream) {
   return launch_v3(PlaneSource<true>{q0t, q1t, q2t, frontt, C},
-                   ExactStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}}, 0,
-                   C, n_t, offs, wgts, n_nodes, stream);
+                   V3CopyStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}},
+                   0, C, n_t, offs, wgts, n_nodes, stream);
 }
 
 // v2 on the orbit for B = C / Cb targets: time and obs (B, n_t); P, aR,
@@ -1436,8 +1603,10 @@ extern "C" int chi2_from_orbit_launch(
     float* out, int C, int n_t, const float* offs, const float* wgts,
     int n_nodes, int projected, int Cb, void* stream) {
   return launch_orbit<false>(time, P, aR, inc, e, w,
-                             Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}, 0,
-                             C, n_t, offs, wgts, n_nodes, projected, stream);
+                             CopyStage{Chi2Args{cA, cB1, cB2, seg, g, obs,
+                                                out, Cb}},
+                             0, C, n_t, offs, wgts, n_nodes, projected,
+                             stream);
 }
 
 // v3 on the orbit: the same arguments; C % 128 == 0, Cb % 32 == 0.
@@ -1449,13 +1618,48 @@ extern "C" int chi2_from_orbit_v3_launch(
     int n_nodes, int projected, int Cb, void* stream) {
   return launch_orbit<true>(
       time, P, aR, inc, e, w,
-      ExactStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}}, 0, C, n_t,
+      V3CopyStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}}, 0, C, n_t,
       offs, wgts, n_nodes, projected, stream);
 }
 
-// v3 with the coefficients computed in the kernel (chi2_kernel_v3 with
-// TabStage): the arguments of chi2_from_orbit_tab_launch; C % 128 == 0,
-// Cb % 32 == 0.
+// v2 with the tabulated coefficients computed in the kernel (TabStage),
+// for B = C / Cb targets: time and obs (B, n_t); P, aR, inc, e, w, k, u1,
+// u2, g (C,), target-major; tab the (n_rows, 162) coefficient table,
+// 16-byte aligned; segs a host TabSegs. projected != 0 selects projected_z
+// and needs n_nodes == 1.
+extern "C" int chi2_from_orbit_tab_launch(
+    const float* time, const float* P, const float* aR, const float* inc,
+    const float* e, const float* w, const float* k, const float* u1,
+    const float* u2, const float* g, const float* obs, const float* tab,
+    float* out, int C, int n_t, const float* offs, const float* wgts,
+    int n_nodes, int projected, int Cb, const void* segs, void* stream) {
+  const TabSegs& ts = *static_cast<const TabSegs*>(segs);
+  if (!tab_segs_ok(ts)) return (int)cudaErrorInvalidValue;
+  return launch_orbit<false>(
+      time, P, aR, inc, e, w,
+      TabStage{KudArgs{k, u1, u2, g, obs, tab, out, Cb}, ts}, 0, C, n_t,
+      offs, wgts, n_nodes, projected, stream);
+}
+
+// v2 with the exact coefficients computed in the kernel (ExactStage): the
+// arguments of chi2_from_orbit_tab_launch with dct the (18, 18) dct_T of
+// the exact coefficients in place of the table and consts a host
+// ExactConsts in place of segs.
+extern "C" int chi2_from_orbit_exact_launch(
+    const float* time, const float* P, const float* aR, const float* inc,
+    const float* e, const float* w, const float* k, const float* u1,
+    const float* u2, const float* g, const float* obs, const float* dct,
+    float* out, int C, int n_t, const float* offs, const float* wgts,
+    int n_nodes, int projected, int Cb, const void* consts, void* stream) {
+  const ExactConsts& ec = *static_cast<const ExactConsts*>(consts);
+  return launch_orbit<false>(
+      time, P, aR, inc, e, w,
+      ExactStage{KudArgs{k, u1, u2, g, obs, dct, out, Cb}, ec}, 0, C, n_t,
+      offs, wgts, n_nodes, projected, stream);
+}
+
+// v3 with the tabulated coefficients computed in the kernel (V3TabStage):
+// the arguments of chi2_from_orbit_tab_launch; C % 128 == 0, Cb % 32 == 0.
 extern "C" int chi2_from_orbit_v3_tab_launch(
     const float* time, const float* P, const float* aR, const float* inc,
     const float* e, const float* w, const float* k, const float* u1,
@@ -1464,103 +1668,74 @@ extern "C" int chi2_from_orbit_v3_tab_launch(
     int n_nodes, int projected, int Cb, const void* segs, void* stream) {
   const TabSegs& ts = *static_cast<const TabSegs*>(segs);
   if (!tab_segs_ok(ts)) return (int)cudaErrorInvalidValue;
-  return launch_orbit<true>(time, P, aR, inc, e, w,
-                            TabStage{TabArgs{k, u1, u2, g, obs, tab, out, Cb},
-                                     ts},
-                            tab_floats(ts.n_rows), C, n_t, offs, wgts,
-                            n_nodes, projected, stream);
+  return launch_orbit<true>(
+      time, P, aR, inc, e, w,
+      V3TabStage{KudArgs{k, u1, u2, g, obs, tab, out, Cb}, ts},
+      tab_floats(ts.n_rows), C, n_t, offs, wgts, n_nodes, projected, stream);
 }
 
-
-// v2 with the coefficients computed in the kernel (chi2_kernel_tab), for
-// B = C / Cb targets: time and obs (B, n_t); P, aR, inc, e, w, k, u1, u2, g
-// (C,), target-major; tab the (n_rows, 162) coefficient table, 16-byte
-// aligned; segs a host TabSegs. projected != 0 selects projected_z and
-// needs n_nodes == 1.
-extern "C" int chi2_from_orbit_tab_launch(
-    const float* time, const float* P, const float* aR, const float* inc,
-    const float* e, const float* w, const float* k, const float* u1,
-    const float* u2, const float* g, const float* obs, const float* tab,
-    float* out, int C, int n_t, const float* offs, const float* wgts,
-    int n_nodes, int projected, int Cb, const void* segs, void* stream) {
-  const TabSegs& ts = *static_cast<const TabSegs*>(segs);
-  const TabArgs p{k, u1, u2, g, obs, tab, out, Cb};
-  if (projected)
-    return launch_tab(OrbitSource<true>{time, P, aR, inc, e, w}, p, C, n_t,
-                      offs, wgts, n_nodes, ts, stream);
-  return launch_tab(OrbitSource<false>{time, P, aR, inc, e, w}, p, C, n_t,
-                    offs, wgts, n_nodes, ts, stream);
-}
-
-// chi2_kernel_tab's coefficient stage alone (coeffs_tab_kernel): out
-// (C, 59) from k, u1, u2 (C,), the same arguments otherwise. For checking
+// TabStage's coefficients alone (coeffs_kernel): out (C, 59) from k, u1,
+// u2 (C,), the table and segs as chi2_from_orbit_tab_launch. For checking
 // the in-kernel coefficients; the chi^2 path never calls it.
 extern "C" int deficit_coeffs_tab_launch(const float* k, const float* u1,
                                          const float* u2, const float* tab,
                                          float* out, int C, const void* segs,
                                          void* stream) {
   const TabSegs& ts = *static_cast<const TabSegs*>(segs);
-  if (C <= 0 || !tab_segs_ok(ts)) return (int)cudaErrorInvalidValue;
-  const TabSetup* su = nullptr;
-  const int err = tab_setup(ts.n_rows, &su);
-  if (err) return err;
-  coeffs_tab_kernel<<<tab_grid(*su, TAB_COEFFS_KERNEL, C), TAB_THREADS,
-                      su->smem, (cudaStream_t)stream>>>(k, u1, u2, tab, out,
-                                                        C, ts);
-  return (int)cudaGetLastError();
+  if (!tab_segs_ok(ts)) return (int)cudaErrorInvalidValue;
+  return launch_coeffs(
+      TabStage{KudArgs{k, u1, u2, nullptr, nullptr, tab, nullptr, C}, ts},
+      out, C, stream);
 }
 
-// What the compiler and the occupancy calculator give chi2_kernel_tab's
-// instance for n_nodes and projected at a table of n_rows rows: out[0]
-// registers a thread, out[1] local memory bytes a thread (spills), out[2]
-// resident blocks per SM, out[3] threads a block, out[4] dynamic shared
-// memory bytes a block, out[5] the device's SMs.
-extern "C" int chi2_from_orbit_tab_info(int n_nodes, int projected,
-                                        int n_rows, int* out) {
-  if (n_nodes < 1 || n_nodes > MAX_NODES || (projected && n_nodes != 1))
-    return (int)cudaErrorInvalidValue;
-  const TabSetup* su = nullptr;
-  const int err = tab_setup(n_rows, &su);
-  if (err) return err;
-  const int i = tab_index(projected != 0, n_nodes);
-  cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, tab_kernel(i));
-  if (e != cudaSuccess) return (int)e;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = su->blocks[i];
-  out[3] = TAB_THREADS;
-  out[4] = su->smem;
-  out[5] = su->sms;
-  return 0;
+// ExactStage's coefficients alone: out (C, 59) from k, u1, u2 (C,), dct
+// and consts as chi2_from_orbit_exact_launch.
+extern "C" int deficit_coeffs_exact_launch(const float* k, const float* u1,
+                                           const float* u2, const float* dct,
+                                           float* out, int C,
+                                           const void* consts,
+                                           void* stream) {
+  const ExactConsts& ec = *static_cast<const ExactConsts*>(consts);
+  return launch_coeffs(
+      ExactStage{KudArgs{k, u1, u2, nullptr, nullptr, dct, nullptr, C}, ec},
+      out, C, stream);
+}
+
+// What the compiler and the occupancy calculator give chi2_kernel_v2's
+// orbit instance for n_nodes and projected with stage (0 CopyStage, 1
+// TabStage at a table of n_rows rows, 2 ExactStage): out[0] registers a
+// thread, out[1] local memory bytes a thread (spills), out[2] resident
+// blocks per SM, out[3] threads a block, out[4] dynamic shared memory bytes
+// a block, out[5] the device's SMs.
+extern "C" int chi2_from_orbit_v2_info(int stage, int n_nodes, int projected,
+                                       int n_rows, int* out) {
+  const void* fn = nullptr;
+  int smem = 0;
+  if (stage == STAGE_COPY) {
+    fn = orbit_kernel<false, CopyStage>(projected != 0, n_nodes);
+    smem = v2_smem_bytes<CopyStage>(0);
+  } else if (stage == STAGE_TAB && n_rows >= 1) {
+    fn = orbit_kernel<false, TabStage>(projected != 0, n_nodes);
+    smem = v2_smem_bytes<TabStage>(tab_floats(n_rows));
+  } else if (stage == STAGE_EXACT) {
+    fn = orbit_kernel<false, ExactStage>(projected != 0, n_nodes);
+    smem = v2_smem_bytes<ExactStage>(EXACT_TABLE);
+  }
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return kernel_info(fn, V2_THREADS, smem, out);
 }
 
 // What the compiler and the occupancy calculator give chi2_kernel_v3's
 // orbit instance for n_nodes and projected, with the tab stage (tab != 0,
-// a table of n_rows rows) or the exact one: out[0] registers a thread,
-// out[1] local memory bytes a thread (spills), out[2] resident blocks per
-// SM, out[3] threads a block, out[4] dynamic shared memory bytes a block,
-// out[5] the device's SMs.
+// a table of n_rows rows) or the copy one: out as chi2_from_orbit_v2_info.
 extern "C" int chi2_from_orbit_v3_info(int n_nodes, int projected, int tab,
                                        int n_rows, int* out) {
-  if (n_nodes < 1 || n_nodes > MAX_NODES || (projected && n_nodes != 1) ||
-      (tab && n_rows < 1))
-    return (int)cudaErrorInvalidValue;
-  const void* fn = tab ? v3_orbit_kernel<TabStage>(projected != 0, n_nodes)
-                       : v3_orbit_kernel<ExactStage>(projected != 0, n_nodes);
-  const int smem = tab ? v3_smem_bytes<TabStage>(tab_floats(n_rows))
-                       : v3_smem_bytes<ExactStage>(0);
-  const V3Setup* su = nullptr;
-  const int err = v3_setup(fn, smem, &su);
-  if (err) return err;
-  cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = su->blocks;
-  out[3] = V3_THREADS;
-  out[4] = smem;
-  out[5] = su->sms;
-  return 0;
+  if (tab && n_rows < 1) return (int)cudaErrorInvalidValue;
+  const void* fn =
+      tab ? orbit_kernel<true, V3TabStage>(projected != 0, n_nodes)
+          : orbit_kernel<true, V3CopyStage>(projected != 0, n_nodes);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  const int smem = tab ? v3_smem_bytes<V3TabStage>(tab_floats(n_rows))
+                       : v3_smem_bytes<V3CopyStage>(0);
+  return kernel_info(fn, V3_THREADS, smem, out);
 }

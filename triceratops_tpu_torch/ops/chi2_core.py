@@ -17,14 +17,19 @@ comes from:
   target-major, Cb = C / B per target, a multiple of the schedule's draw
   tile.
 
-Each schedule has a third orbit entry point, ``chi2_from_orbit_tab`` (v2,
-the main path on the card: ``ops/lightcurve.py::_chi2_fused``) and
-``chi2_from_orbit_v3_tab`` (v3), which takes each draw's (k, u1, u2)
-instead of its deficit coefficients and computes
-``fastcore.cheb_deficit_coeffs_tab`` inside the kernel from a
-shared-memory copy of the coefficient table, as the JAX package's
-``_chi2_pallas`` does in one call. ``deficit_coeffs_tab`` runs that
-in-kernel coefficient stage alone, to check it; no path calls it.
+Each schedule has an orbit entry point that takes each draw's (k, u1,
+u2) instead of its deficit coefficients and computes the coefficients
+inside the kernel, as the JAX package's ``_chi2_pallas`` does in one call:
+``chi2_from_orbit_tab`` (v2, the main path on the card:
+``ops/lightcurve.py::_chi2_fused``) and ``chi2_from_orbit_v3_tab`` (v3)
+the tabulated ones (``fastcore.cheb_deficit_coeffs_tab``) from a
+shared-memory copy of the coefficient table; ``chi2_from_orbit_exact``
+(v2, the route of ``TRICERATOPS_COEFFS=exact``) the exact ones
+(``fastcore.cheb_deficit_coeffs``: the occultation deficit at 54 nodes
+per draw, then a DCT). ``deficit_coeffs_tab`` and ``deficit_coeffs_exact``
+run those in-kernel coefficient stages alone, to check them; no path
+calls them. In the source every v2 entry point is one kernel body over a
+coefficient stage (copy, tab or exact), and every v3 one another.
 
 The v3 orbit kernels skip the Kepler solve outside each draw's transit
 window (``transit_window``, ``window_contains``: their plain twins, for
@@ -33,12 +38,14 @@ tests and bounds; no path calls them).
 On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
 plain torch version (``chi2_supersampled_plain``,
 ``chi2_from_orbit_plain``, ``chi2_from_orbit_tab_plain``,
-``fastcore.cheb_deficit_coeffs_tab``). There is no fallback between them.
+``chi2_from_orbit_exact_plain``, ``fastcore.cheb_deficit_coeffs_tab``,
+``fastcore.cheb_deficit_coeffs``). There is no fallback between them.
 
 ``launches``, ``launches_v3``, ``launches_orbit``, ``launches_orbit_v3``,
-``launches_orbit_tab``, ``launches_orbit_v3_tab`` and
-``launches_coeffs_tab`` count kernel launches (not plain-path calls), so a
-run can show which kernel its main path went through.
+``launches_orbit_tab``, ``launches_orbit_v3_tab``, ``launches_orbit_exact``,
+``launches_coeffs_tab`` and ``launches_coeffs_exact`` count kernel
+launches (not plain-path calls), so a run can show which kernel its main
+path went through.
 """
 
 from __future__ import annotations
@@ -54,14 +61,17 @@ from pathlib import Path
 import torch
 
 from ..core.kepler import E_MAX, projected_z
-from ..tables import load_tables
+from ..tables import dct_nodes, load_tables
 from .fastcore import (
     M_CHEB, TAB_SEGMENTS, _BREAK_FLOOR, _BREAK_SLOPE, _TAB_BREAKS, _TAB_DEGS,
-    cheb_deficit_coeffs_tab, cheb_deficit_eval, exposure_z2_poly,
+    cheb_deficit_coeffs, cheb_deficit_coeffs_tab, cheb_deficit_eval,
+    exposure_z2_poly,
 )
+from .occult import _N_GL_F32, _gl_tables
 
 DRAW_TILE = 256     # v2: C % DRAW_TILE == 0
 DRAW_LANES = 128    # v3: C % DRAW_LANES == 0
+V2_GROUP = 32       # v2: points of one draw whose deficit is skipped at once
 V3_DRAWS = 8        # draws a warp of the v3 kernels takes at once
 MAX_NODES = 4
 
@@ -71,7 +81,9 @@ launches_orbit = 0
 launches_orbit_v3 = 0
 launches_orbit_tab = 0
 launches_orbit_v3_tab = 0
+launches_orbit_exact = 0
 launches_coeffs_tab = 0
+launches_coeffs_exact = 0
 
 # The v3 kernels' transit-window margins (csrc/chi2_supersampled.cu,
 # transit_window): a pad in mean anomaly (rad), a relative margin for
@@ -95,7 +107,7 @@ _lib = None
 
 
 class TabSegs(ctypes.Structure):
-    """The coefficient table's k-segments as ``chi2_kernel_tab`` reads them
+    """The coefficient table's k-segments as the tab stages read them
     (``csrc/chi2_supersampled.cu::TabSegs``)."""
     _fields_ = [("lo", ctypes.c_float * 8), ("shift", ctypes.c_float * 8),
                 ("den", ctypes.c_float * 8), ("kind", ctypes.c_int * 8),
@@ -119,6 +131,28 @@ def _tab_segs():
         (ctypes.c_int * 8)(*degs), (ctypes.c_int * 8)(*row0),
         float(_TAB_BREAKS[0]), float(_TAB_BREAKS[-1]), _BREAK_SLOPE,
         _BREAK_FLOOR, sum(degs))
+
+
+class ExactConsts(ctypes.Structure):
+    """The exact stage's constants (``csrc/chi2_supersampled.cu::
+    ExactConsts``): the S-nodes, occult.py's float32 Gauss-Legendre rule
+    and ``_segments``' break."""
+    _fields_ = [("s_nodes", ctypes.c_float * M_CHEB),
+                ("sin2t", ctypes.c_float * _N_GL_F32),
+                ("wgt", ctypes.c_float * _N_GL_F32),
+                ("slope", ctypes.c_float), ("floor", ctypes.c_float)]
+
+
+@lru_cache(maxsize=None)
+def _exact_consts():
+    """The ExactConsts of ``tables.dct_nodes`` and ``occult._gl_tables``:
+    each float64 rounded to float32 (ctypes rounds to nearest, as torch
+    rounds the float64 arrays of ``load_tables`` and ``occult._gl``)."""
+    sin2t, wgt = _gl_tables(_N_GL_F32)
+    return ExactConsts((ctypes.c_float * M_CHEB)(*dct_nodes()[1]),
+                       (ctypes.c_float * _N_GL_F32)(*sin2t),
+                       (ctypes.c_float * _N_GL_F32)(*wgt), _BREAK_SLOPE,
+                       _BREAK_FLOOR)
 
 
 def _nvcc() -> str:
@@ -169,23 +203,22 @@ def _load():
             fn.argtypes = ([ctypes.c_void_p] * 13 + tail
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        for fn in (lib.chi2_from_orbit_tab_launch,
-                   lib.chi2_from_orbit_v3_tab_launch):
+        kud = (lib.chi2_from_orbit_tab_launch,
+               lib.chi2_from_orbit_v3_tab_launch,
+               lib.chi2_from_orbit_exact_launch)
+        for fn in kud:
             fn.argtypes = ([ctypes.c_void_p] * 13 + tail
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_void_p])
-        lib.deficit_coeffs_tab_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
-                                     ctypes.c_void_p])
-        lib.chi2_from_orbit_tab_info.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.chi2_from_orbit_v3_info.argtypes = [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        for fn in (lib.chi2_from_orbit_tab_launch,
-                   lib.chi2_from_orbit_v3_tab_launch,
-                   lib.deficit_coeffs_tab_launch,
-                   lib.chi2_from_orbit_tab_info,
-                   lib.chi2_from_orbit_v3_info):
+        coeffs = (lib.deficit_coeffs_tab_launch,
+                  lib.deficit_coeffs_exact_launch)
+        for fn in coeffs:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        infos = (lib.chi2_from_orbit_v2_info, lib.chi2_from_orbit_v3_info)
+        for fn in infos:
+            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        for fn in (*kud, *coeffs, *infos):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -272,8 +305,9 @@ _TAB_DRAW_ARGS = ("P", "a_R", "inc", "e", "w", "k", "u1", "u2", "g")
 
 def _check_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, offs,
                      wgts, ns, tile):
-    """``chi2_from_orbit_tab``'s and ``chi2_from_orbit_v3_tab``'s checks,
-    those of ``_check_orbit`` with (k, u1, u2, g) (C,) in place of the
+    """The checks of the entry points that compute the coefficients in the
+    kernel (``chi2_from_orbit_tab``, ``_v3_tab``, ``_exact``): those of
+    ``_check_orbit`` with (k, u1, u2, g) (C,) in place of the
     coefficients; returns Cb."""
     C, n_t, B, Cb = _orbit_layout(time, P, tile)
     draws = (P, a_R, inc, e, w, k, u1, u2, g)
@@ -287,21 +321,40 @@ def _check_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, offs,
 
 
 def chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg, g,
-                            obs_dev, *, offs, wgts):
+                            obs_dev, *, offs, wgts, group=None):
     """Plain torch version of both kernels (any device): the same function
     as ``chi2_supersampled`` and ``chi2_supersampled_v3``, on draw-major
-    inputs. It evaluates every point; the kernels skip groups of points
-    that are out of transit (v2: 32 time points of one draw; v3: a time
-    step of 8 draws), which drops their ~1e-8 deficit residue at
-    z >= zmax."""
+    inputs. By default it evaluates every point, as the JAX package's XLA
+    path does; the kernels skip groups of points that are out of transit
+    (v2: ``V2_GROUP`` time points of one draw; v3: a time step of 8
+    draws), which drops the deficit series' residue at z >= zmax there
+    (tabulated series ~3e-9, exact float32 series up to ~6e-6). With
+    ``group``, a point counts only if some point of its run of ``group``
+    consecutive points of the draw (runs start at t = 0) is in front with
+    z^2 < zmax^2 at a node: the v2 kernels' skip rule at ``group =
+    V2_GROUP``."""
     coeffs = (cA, cB1, cB2, *seg.unbind(1))
     Dbar = torch.zeros_like(q0)
+    seen = None
+    if group is not None:
+        zmax = seg[:, 1:2] + 1.0 / seg[:, 4:5]
+        zmax2 = zmax * zmax
+        seen = torch.zeros(q0.shape, dtype=torch.bool, device=q0.device)
     for d, wt in zip(offs, wgts):
-        z = torch.sqrt(torch.clamp_min(q0 + q1 * d + q2 * (d * d), 0.0))
+        z2 = q0 + q1 * d + q2 * (d * d)
+        if seen is not None:
+            seen |= z2 < zmax2
+        z = torch.sqrt(torch.clamp_min(z2, 0.0))
         Dbar = Dbar + wt * cheb_deficit_eval(coeffs, z)
     gD = g * (Dbar * front)
-    return torch.sum(gD * (2.0 * obs_dev + gD), dim=1) + torch.sum(
-        obs_dev * obs_dev)
+    delta = gD * (2.0 * obs_dev + gD)
+    if seen is not None:
+        C, n_t = q0.shape
+        seen &= front > 0.0
+        runs = torch.nn.functional.pad(seen, (0, -n_t % group)).view(
+            C, -1, group).any(dim=2)
+        delta = delta * runs.repeat_interleave(group, dim=1)[:, :n_t]
+    return torch.sum(delta, dim=1) + torch.sum(obs_dev * obs_dev)
 
 
 def _launch(name, arrays, C, n_t, offs, wgts, *flags):
@@ -418,21 +471,23 @@ def orbit_planes(time, P, a_R, inc, e, w, ns):
 
 
 def chi2_from_orbit_plain(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
-                          obs_dev, *, offs, wgts, ns):
+                          obs_dev, *, offs, wgts, ns, group=None):
     """Plain torch version of both orbit kernels (any device): the planes of
-    ``orbit_planes``, then ``chi2_supersampled_plain``. With time (B, n_t)
-    the draws are target-major, Cb = C / B per target, and each target's
-    draws run on its own rows of time and obs_dev."""
+    ``orbit_planes``, then ``chi2_supersampled_plain`` (with its
+    ``group``). With time (B, n_t) the draws are target-major, Cb = C / B
+    per target, and each target's draws run on its own rows of time and
+    obs_dev."""
     if time.dim() == 1:
         return chi2_supersampled_plain(
             *orbit_planes(time, P, a_R, inc, e, w, ns), cA, cB1, cB2, seg, g,
-            obs_dev, offs=offs, wgts=wgts)
+            obs_dev, offs=offs, wgts=wgts, group=group)
     Cb = P.shape[0] // time.shape[0]
     draws = (P, a_R, inc, e, w, cA, cB1, cB2, seg, g)
     return torch.cat([
         chi2_from_orbit_plain(time[b], *(x[b * Cb:(b + 1) * Cb]
                                          for x in draws),
-                              obs_dev[b:b + 1], offs=offs, wgts=wgts, ns=ns)
+                              obs_dev[b:b + 1], offs=offs, wgts=wgts, ns=ns,
+                              group=group)
         for b in range(time.shape[0])])
 
 
@@ -486,27 +541,54 @@ def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
     return out
 
 
-def _device_table(device):
-    """The (sum_degs, 162) float32 coefficient table on ``device``, as
-    ``chi2_kernel_tab`` copies it into shared memory: contiguous and 16-byte
-    aligned."""
-    tab = load_tables(device, torch.float32)["tab_C"]
+def _device_table(device, name="tab_C"):
+    """A float32 table of ``load_tables`` on ``device``, as a kernel's
+    stage copies it into shared memory: contiguous and 16-byte aligned.
+    "tab_C": the (sum_degs, 162) coefficient table of the tab stages;
+    "dct_T": the (18, 18) DCT of the exact stage."""
+    tab = load_tables(device, torch.float32)[name]
     if not tab.is_contiguous() or tab.data_ptr() % 16:
-        raise ValueError("the coefficient table must be contiguous and "
-                         "16-byte aligned")
+        raise ValueError(f"the table {name} must be contiguous and 16-byte "
+                         "aligned")
     return tab
+
+
+# Each in-kernel coefficient stage: its coefficient function (the plain
+# version), the table it copies into shared memory and its constants
+_STAGES = {"tab": (cheb_deficit_coeffs_tab, "tab_C", _tab_segs),
+           "exact": (cheb_deficit_coeffs, "dct_T", _exact_consts)}
+
+
+def _orbit_plain_from(stage, time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
+                      *, offs, wgts, ns, group=None):
+    """The coefficients of ``stage``'s coefficient function, then
+    ``chi2_from_orbit_plain``."""
+    cA, cB1, cB2, *segs = _STAGES[stage][0](k, u1, u2)
+    return chi2_from_orbit_plain(
+        time, P, a_R, inc, e, w, cA.contiguous(), cB1.contiguous(),
+        cB2.contiguous(), torch.stack(segs, 1), g[:, None], obs_dev,
+        offs=offs, wgts=wgts, ns=ns, group=group)
 
 
 def chi2_from_orbit_tab_plain(time, P, a_R, inc, e, w, k, u1, u2, g,
                               obs_dev, *, offs, wgts, ns):
-    """Plain torch version of the tab kernel (any device): the tabulated
+    """Plain torch version of the tab kernels (any device): the tabulated
     coefficients of ``fastcore.cheb_deficit_coeffs_tab``, then
     ``chi2_from_orbit_plain``."""
-    cA, cB1, cB2, *segs = cheb_deficit_coeffs_tab(k, u1, u2)
-    return chi2_from_orbit_plain(
-        time, P, a_R, inc, e, w, cA.contiguous(), cB1.contiguous(),
-        cB2.contiguous(), torch.stack(segs, 1), g[:, None], obs_dev,
-        offs=offs, wgts=wgts, ns=ns)
+    return _orbit_plain_from("tab", time, P, a_R, inc, e, w, k, u1, u2, g,
+                             obs_dev, offs=offs, wgts=wgts, ns=ns)
+
+
+def chi2_from_orbit_exact_plain(time, P, a_R, inc, e, w, k, u1, u2, g,
+                                obs_dev, *, offs, wgts, ns, group=None):
+    """Plain torch version of the exact kernel (any device): the exact
+    coefficients of ``fastcore.cheb_deficit_coeffs``, then
+    ``chi2_from_orbit_plain``; ``group = V2_GROUP`` gives the kernel's skip
+    rule, which drops the exact float32 series' residue beyond zmax (up to
+    ~6e-6) at the groups it skips (``chi2_supersampled_plain``)."""
+    return _orbit_plain_from("exact", time, P, a_R, inc, e, w, k, u1, u2, g,
+                             obs_dev, offs=offs, wgts=wgts, ns=ns,
+                             group=group)
 
 
 def chi2_from_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, *,
@@ -530,20 +612,48 @@ def chi2_from_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, *,
     Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_TILE)
     if not _device_path(P):
         return chi2_from_orbit_tab_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch_tab("chi2_from_orbit_tab", args, offs, wgts, ns, Cb)
+    out = _launch_kud("chi2_from_orbit_tab", "tab", args, offs, wgts, ns, Cb)
     launches_orbit_tab += 1
     return out
 
 
-def _launch_tab(name, args, offs, wgts, ns, Cb):
-    """Launch a tab entry point on checked CUDA tensors ``args`` (those of
-    ``chi2_from_orbit_tab``), with the device's coefficient table and the
-    table's segments."""
+def chi2_from_orbit_exact(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
+                          *, offs, wgts, ns):
+    """chi^2 (unnormalized by sigma) for one draw chunk, v2 schedule, with
+    the exposure z^2 model and the exact deficit coefficients
+    (``fastcore.cheb_deficit_coeffs``: the deficit of
+    ``occult.occult_quad_deficit`` at each draw's 3 x 18 Chebyshev nodes,
+    then the DCT) computed inside the kernel.
+
+    Args, checks and result as ``chi2_from_orbit_tab``. A CPU tensor runs
+    the plain version (``chi2_from_orbit_exact_plain``); a CUDA tensor
+    launches the kernel, once for all B targets, and a draw's result is
+    the same whatever else the launch holds.
+    """
+    global launches_orbit_exact
+    offs, wgts = _nodes(offs, wgts)
+    args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
+    Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_TILE)
+    if not _device_path(P):
+        return chi2_from_orbit_exact_plain(*args, offs=offs, wgts=wgts,
+                                           ns=ns)
+    out = _launch_kud("chi2_from_orbit_exact", "exact", args, offs, wgts, ns,
+                      Cb)
+    launches_orbit_exact += 1
+    return out
+
+
+def _launch_kud(name, stage, args, offs, wgts, ns, Cb):
+    """Launch an entry point that computes ``stage``'s coefficients in the
+    kernel, on checked CUDA tensors ``args`` (those of
+    ``chi2_from_orbit_tab``), with the stage's table on the device and its
+    constants."""
     time, P = args[0], args[1]
-    segs = _tab_segs()
-    return _launch(name, (*args, _device_table(P.device)), P.shape[0],
+    _, table, consts = _STAGES[stage]
+    consts = consts()
+    return _launch(name, (*args, _device_table(P.device, table)), P.shape[0],
                    time.shape[-1], offs, wgts, int(ns == 1), Cb,
-                   ctypes.addressof(segs))
+                   ctypes.addressof(consts))
 
 
 def chi2_from_orbit_v3_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
@@ -562,7 +672,8 @@ def chi2_from_orbit_v3_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
     Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_LANES)
     if not _device_path(P):
         return chi2_from_orbit_tab_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch_tab("chi2_from_orbit_v3_tab", args, offs, wgts, ns, Cb)
+    out = _launch_kud("chi2_from_orbit_v3_tab", "tab", args, offs, wgts, ns,
+                      Cb)
     launches_orbit_v3_tab += 1
     return out
 
@@ -645,6 +756,37 @@ def window_contains(time, P, mid, half):
         torch.abs(yw) <= half[:, None] + WIN_REL_M * torch.abs(x))
 
 
+def _coeffs_launch(stage, k, u1, u2):
+    """``stage``'s in-kernel coefficient function over the CUDA draws (k,
+    u1, u2) (``deficit_coeffs_<stage>_launch``): the outputs of
+    ``fastcore.cheb_deficit_coeffs``."""
+    lib = _load()
+    C = k.shape[0]
+    out = torch.empty((C, 3 * M_CHEB + 5), dtype=torch.float32,
+                      device=k.device)
+    _, table, consts = _STAGES[stage]
+    consts = consts()
+    with torch.cuda.device(k.device):
+        err = getattr(lib, f"deficit_coeffs_{stage}_launch")(
+            k.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            _device_table(k.device, table).data_ptr(), out.data_ptr(), C,
+            ctypes.addressof(consts), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deficit_coeffs_{stage} kernel launch failed: "
+                           f"cudaError {err}")
+    m = M_CHEB
+    return (out[:, :m], out[:, m:2 * m], out[:, 2 * m:3 * m],
+            *out[:, 3 * m:].unbind(1))
+
+
+def _check_kud(k, u1, u2):
+    if k.dim() != 1 or k.shape[0] < 1:
+        raise ValueError(f"k must be (C,) with C >= 1, got {tuple(k.shape)}")
+    C = k.shape[0]
+    _check_arrays(dict(k=k, u1=u1, u2=u2), dict(k=(C,), u1=(C,), u2=(C,)),
+                  (0.0,), (1.0,))
+
+
 def deficit_coeffs_tab(k, u1, u2):
     """``fastcore.cheb_deficit_coeffs_tab`` (same arguments and outputs) as
     ``chi2_from_orbit_tab`` computes it: on a CUDA tensor the kernel's own
@@ -652,65 +794,71 @@ def deficit_coeffs_tab(k, u1, u2):
     on a CPU tensor the torch version. For checking the in-kernel
     coefficients; no path calls it."""
     global launches_coeffs_tab
-    if k.dim() != 1 or k.shape[0] < 1:
-        raise ValueError(f"k must be (C,) with C >= 1, got {tuple(k.shape)}")
-    C = k.shape[0]
-    _check_arrays(dict(k=k, u1=u1, u2=u2), dict(k=(C,), u1=(C,), u2=(C,)),
-                  (0.0,), (1.0,))
+    _check_kud(k, u1, u2)
     if not _device_path(k):
         return cheb_deficit_coeffs_tab(k, u1, u2)
-    lib = _load()
-    out = torch.empty((C, 3 * M_CHEB + 5), dtype=torch.float32,
-                      device=k.device)
-    segs = _tab_segs()
-    with torch.cuda.device(k.device):
-        err = lib.deficit_coeffs_tab_launch(
-            k.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-            _device_table(k.device).data_ptr(), out.data_ptr(), C,
-            ctypes.addressof(segs), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"deficit_coeffs_tab kernel launch failed: "
-                           f"cudaError {err}")
+    out = _coeffs_launch("tab", k, u1, u2)
     launches_coeffs_tab += 1
-    m = M_CHEB
-    return (out[:, :m], out[:, m:2 * m], out[:, 2 * m:3 * m],
-            *out[:, 3 * m:].unbind(1))
+    return out
 
 
-def tab_kernel_info(ns, n_nodes, device="cuda"):
-    """What the compiler and the occupancy calculator give the tab kernel's
-    instance for ``ns`` and ``n_nodes`` on ``device``: registers and local
-    memory bytes (spills) a thread, resident blocks and warps per SM,
-    threads and dynamic shared memory bytes a block, and the SMs."""
-    lib = _load()
+def deficit_coeffs_exact(k, u1, u2):
+    """``fastcore.cheb_deficit_coeffs`` on float32 draws (same arguments
+    and outputs) as ``chi2_from_orbit_exact`` computes it: on a CUDA tensor
+    the kernel's own coefficient function over the draws
+    (``deficit_coeffs_exact_launch``), on a CPU tensor the torch version.
+    For checking the in-kernel coefficients; no path calls it."""
+    global launches_coeffs_exact
+    _check_kud(k, u1, u2)
+    if not _device_path(k):
+        return cheb_deficit_coeffs(k, u1, u2)
+    out = _coeffs_launch("exact", k, u1, u2)
+    launches_coeffs_exact += 1
+    return out
+
+
+def _info(fn_name, args, device):
+    """A kernel-info entry point's six numbers as a dict."""
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(torch.device(device)):
-        err = lib.chi2_from_orbit_tab_info(n_nodes, int(ns == 1),
-                                           _tab_segs().n_rows, out)
+        err = getattr(_load(), fn_name)(*args, out)
     if err != 0:
-        raise RuntimeError(f"chi2_from_orbit_tab_info failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"{fn_name} failed: cudaError {err}")
     regs, local, blocks, threads, smem, sms = out
     return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks,
                 warps_per_sm=blocks * threads // 32, threads=threads,
                 smem_bytes=smem, sms=sms)
 
 
-def v3_kernel_info(ns, n_nodes, tab=True, device="cuda"):
-    """``tab_kernel_info`` for the v3 orbit kernel's instance (the tab
-    stage, or with ``tab=False`` the exact one of ``chi2_from_orbit_v3``):
+V2_STAGES = ("copy", "tab", "exact")   # chi2_from_orbit_v2_info's codes
+
+
+def v2_kernel_info(stage, ns, n_nodes, device="cuda"):
+    """What the compiler and the occupancy calculator give the v2 orbit
+    kernel's instance with coefficient stage ``stage`` ("copy":
+    ``chi2_from_orbit``, "tab": ``chi2_from_orbit_tab``, "exact":
+    ``chi2_from_orbit_exact``) for ``ns`` and ``n_nodes`` on ``device``:
     registers and local memory bytes (spills) a thread, resident blocks and
     warps per SM, threads and dynamic shared memory bytes a block, and the
     SMs."""
-    lib = _load()
-    out = (ctypes.c_int * 6)()
-    with torch.cuda.device(torch.device(device)):
-        err = lib.chi2_from_orbit_v3_info(n_nodes, int(ns == 1), int(tab),
-                                          _tab_segs().n_rows, out)
-    if err != 0:
-        raise RuntimeError(f"chi2_from_orbit_v3_info failed: cudaError "
-                           f"{err}")
-    regs, local, blocks, threads, smem, sms = out
-    return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks,
-                warps_per_sm=blocks * threads // 32, threads=threads,
-                smem_bytes=smem, sms=sms)
+    return _info("chi2_from_orbit_v2_info",
+                 (V2_STAGES.index(stage), n_nodes, int(ns == 1),
+                  _tab_segs().n_rows), device)
+
+
+def tab_kernel_info(ns, n_nodes, device="cuda"):
+    """``v2_kernel_info`` of the tab instance."""
+    return v2_kernel_info("tab", ns, n_nodes, device)
+
+
+def exact_kernel_info(ns, n_nodes, device="cuda"):
+    """``v2_kernel_info`` of the exact instance."""
+    return v2_kernel_info("exact", ns, n_nodes, device)
+
+
+def v3_kernel_info(ns, n_nodes, tab=True, device="cuda"):
+    """``v2_kernel_info`` for the v3 orbit kernel's instance (the tab
+    stage, or with ``tab=False`` the copy one of ``chi2_from_orbit_v3``)."""
+    return _info("chi2_from_orbit_v3_info",
+                 (n_nodes, int(ns == 1), int(tab), _tab_segs().n_rows),
+                 device)

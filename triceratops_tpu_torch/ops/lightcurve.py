@@ -13,14 +13,15 @@ Paths per call:
 * ``backend="auto"`` (default, fast): the fused chi^2 of
   ``ops/chi2_core.py`` straight from each draw's parameters and orbit. On
   a CUDA tensor a hand-written kernel computes the exposure z^2 model per
-  point itself, in draw chunks of up to 2^20 (``orbit_chunk``); with
-  tabulated coefficients it also computes the coefficients
-  (``chi2_from_orbit_tab``, or ``chi2_from_orbit_v3_tab`` under v3;
-  ``tab_in_kernel``), otherwise the torch coefficient stage feeds it. On
-  a CPU tensor the torch coefficient stage feeds the kernel's plain torch
-  version, in ``draw_chunk``'s chunks. ``CHI2_SCHEDULE`` picks the kernel: the v2
-  schedule (default) or, with ``TRICERATOPS_PALLAS_V=3`` in the
-  environment when this module is imported, the v3 one.
+  point itself, in draw chunks of up to 2^20 (``orbit_chunk``), and the
+  deficit coefficients too where ``in_kernel_coeffs`` names a stage:
+  tabulated ones (``chi2_from_orbit_tab``, or ``chi2_from_orbit_v3_tab``
+  under v3) or, under ``TRICERATOPS_COEFFS=exact`` on v2, exact ones
+  (``chi2_from_orbit_exact``); otherwise the torch coefficient stage feeds
+  it. On a CPU tensor the torch coefficient stage feeds the kernel's plain
+  torch version, in ``draw_chunk``'s chunks. ``CHI2_SCHEDULE`` picks the
+  kernel: the v2 schedule (default) or, with ``TRICERATOPS_PALLAS_V=3`` in
+  the environment when this module is imported, the v3 one.
 * ``backend="torch"``: the unfused plain-torch fast path
   (``_mean_deficit_fast``), which materializes the deficit.
 * ``exact=True``: a full Kepler solve and exact kernel per supersample.
@@ -61,10 +62,11 @@ SEC_GRID = np.linspace(-0.05, 0.05, 25)
 LN2PI = float(np.log(2.0 * np.pi))
 
 # chi^2 kernel schedule, read once at import as the JAX package reads its
-# Pallas schedule: "2" (chi2_core.chi2_from_orbit_tab, or chi2_from_orbit
-# under exact coefficients) or "3" (chi2_core.chi2_from_orbit_v3_tab, or
-# chi2_from_orbit_v3); v3 skips the Kepler solve outside each draw's
-# transit window, which pays on long unbinned curves
+# Pallas schedule: "2" (chi2_core.chi2_from_orbit_tab, or
+# chi2_from_orbit_exact under exact coefficients) or "3"
+# (chi2_core.chi2_from_orbit_v3_tab, or chi2_from_orbit_v3 fed by the torch
+# exact stage); v3 skips the Kepler solve outside each draw's transit
+# window, which pays on long unbinned curves
 CHI2_SCHEDULE = os.environ.get("TRICERATOPS_PALLAS_V", "2")
 
 # Largest draw chunk of the orbit kernels on a CUDA tensor. No (C, n_t)
@@ -75,11 +77,13 @@ ORBIT_CHUNK_MAX = 1 << 20
 
 # Most draws one orbit-kernel launch of a batched core takes: whole targets
 # (one chunk each) go to one launch while their padded draws fit. Set from
-# memory, not speed: the torch coefficient stage (the CPU route and
-# TRICERATOPS_COEFFS=exact) holds (C, 152) and (C, 162) f32 products per
-# launch, ~1.3 KB a draw, which at 2^23 (8 targets of 1000192) took an
-# 8-target batch call to 14.2 GiB on the card (PERF.md);
-# chi2_from_orbit_tab and chi2_from_orbit_v3_tab make neither
+# memory, not speed: a torch coefficient stage on the card holds per-draw
+# intermediates for the whole launch (the tab stage (C, 152) and (C, 162)
+# f32 products, ~1.3 KB a draw, which at 2^23 (8 targets of 1000192) took
+# an 8-target batch call to 14.2 GiB (PERF.md); the exact stage, which v3
+# under TRICERATOPS_COEFFS=exact still runs, (C, 18, 11) ones);
+# chi2_from_orbit_tab, chi2_from_orbit_v3_tab and chi2_from_orbit_exact
+# make none
 DRAW_CAP = 1 << 23
 
 _GL_EXPO_MAX = 4
@@ -178,28 +182,36 @@ def _mean_deficit(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns,
     return fn(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns)
 
 
-def tab_in_kernel(device, dtype, coeffs_backend):
-    """Whether ``_chi2_fused`` calls the schedule's tab entry point, which
-    computes the tabulated coefficients in the kernel
-    (``chi2_core.chi2_from_orbit_tab`` under v2,
-    ``chi2_from_orbit_v3_tab`` under v3), for draws of ``dtype`` on
-    ``device`` under a ``fastcore.COEFFS_BACKEND`` value: on a CUDA device
-    when the coefficients are tabulated (``fastcore.uses_tab``), under
-    either schedule. Otherwise the torch coefficient stage feeds the
-    schedule's orbit entry point, ``chi2_from_orbit`` or
-    ``chi2_from_orbit_v3`` (on a CPU device its plain version). Settings,
-    not fallbacks: nothing tries one route and takes another."""
-    return (torch.device(device).type == "cuda"
-            and fastcore.uses_tab(coeffs_backend, dtype))
+def in_kernel_coeffs(device, dtype, coeffs_backend, schedule):
+    """The coefficient stage that ``_chi2_fused``'s kernel runs itself for
+    draws of ``dtype`` on ``device`` under a ``fastcore.COEFFS_BACKEND``
+    value and a ``CHI2_SCHEDULE``: "tab" on a CUDA device when the
+    coefficients are tabulated (``fastcore.uses_tab``), under either
+    schedule (``chi2_core.chi2_from_orbit_tab``, or
+    ``chi2_from_orbit_v3_tab`` under v3); "exact" on a CUDA device for
+    float32 draws under "exact" on v2 (``chi2_from_orbit_exact``); else
+    None: the torch coefficient stage feeds the schedule's orbit entry
+    point, ``chi2_from_orbit`` or ``chi2_from_orbit_v3`` (on a CPU device
+    its plain version). Settings, not fallbacks: nothing tries one route
+    and takes another."""
+    if torch.device(device).type != "cuda":
+        return None
+    if fastcore.uses_tab(coeffs_backend, dtype):
+        return "tab"
+    if (coeffs_backend == "exact" and dtype == torch.float32
+            and schedule == "2"):
+        return "exact"
+    return None
 
 
 def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
                 n_t, ns):
     """chi^2 of one chunk straight from per-draw parameters (a kernel on
-    CUDA, the plain version on CPU): where ``tab_in_kernel`` says so
-    ``chi2_core.chi2_from_orbit_tab`` or, under ``CHI2_SCHEDULE == "3"``,
-    ``chi2_from_orbit_v3_tab``; else the torch coefficient stage into
-    ``chi2_core.chi2_from_orbit`` or, under v3,
+    CUDA, the plain version on CPU): where ``in_kernel_coeffs`` names
+    "tab" ``chi2_core.chi2_from_orbit_tab`` or, under ``CHI2_SCHEDULE ==
+    "3"``, ``chi2_from_orbit_v3_tab``; where it names "exact"
+    ``chi2_core.chi2_from_orbit_exact``; else the torch coefficient stage
+    into ``chi2_core.chi2_from_orbit`` or, under v3,
     ``chi2_core.chi2_from_orbit_v3``. GL exposure nodes and the Taylor z^2
     model for ns > 1, the exact projected separation at one node for ns =
     1. time and obs_dev are (n_t,) for one target or (B, n_t), the draws
@@ -213,8 +225,11 @@ def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
     orbit = [x.contiguous() for x in (time, P, a_R, inc, e, w)]
     obs = obs_dev.reshape(-1, time.shape[-1]).contiguous()
     v3 = CHI2_SCHEDULE == "3"
-    if tab_in_kernel(time.device, dtype, fastcore.COEFFS_BACKEND):
-        fn = (chi2_core.chi2_from_orbit_v3_tab if v3
+    stage = in_kernel_coeffs(time.device, dtype, fastcore.COEFFS_BACKEND,
+                             CHI2_SCHEDULE)
+    if stage is not None:
+        fn = (chi2_core.chi2_from_orbit_exact if stage == "exact"
+              else chi2_core.chi2_from_orbit_v3_tab if v3
               else chi2_core.chi2_from_orbit_tab)
         return fn(*orbit, *(x.contiguous() for x in (k, u1, u2, g)), obs,
                   offs=offs, wgts=wgt, ns=ns)
