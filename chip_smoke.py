@@ -180,10 +180,10 @@ R_EVOLVED = 2.0
 # phase 9: parameter rows of the batch likelihoods, rows checked on the CPU
 N_LIKELIHOOD_ROWS = 100_000
 N_LIKELIHOOD_CHECK = 256
-COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
-            "launches_orbit_tab", "launches_orbit_v3_tab",
-            "launches_orbit_exact", "launches_coeffs_tab",
-            "launches_coeffs_exact")
+COUNTERS = tuple(f"launch.{name}" for name in (
+    "chi2_supersampled", "chi2_supersampled_v3", "chi2_from_orbit",
+    "chi2_from_orbit_v3", "chi2_from_orbit_tab", "chi2_from_orbit_v3_tab",
+    "chi2_from_orbit_exact", "deficit_coeffs_tab", "deficit_coeffs_exact"))
 # phase 10: targets in the batch, the seed of their (Rp, P) rows and the
 # ranges they are drawn from [Re], [d]. At sigma = 4e-4 a planet of ~10 Re
 # or more makes the companion and background rows needles whose lnZ
@@ -1044,12 +1044,12 @@ def make_run(tr, workdir):
 
 
 def _counts(chi2_core):
-    return {n: getattr(chi2_core, n) for n in COUNTERS}
+    counts = chi2_core.profiling.counters()
+    return {n: counts.get(n, 0) for n in COUNTERS}
 
 
 def _reset(chi2_core):
-    for n in COUNTERS:
-        setattr(chi2_core, n, 0)
+    chi2_core.profiling.reset()
 
 
 def _only(c, name):
@@ -1079,8 +1079,8 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{main_counts}; FPP {t.FPP:.6g}, NFPP {t.NFPP:.6g}")
     print("phase 4: lnZ " + ", ".join(
         f"{n}={v:.4f}" for n, v in zip(names, lnZ)))
-    check(_only(main_counts, "launches_orbit_tab")
-          and main_counts["launches_orbit_tab"] == len(lnZ),
+    check(_only(main_counts, "launch.chi2_from_orbit_tab")
+          and main_counts["launch.chi2_from_orbit_tab"] == len(lnZ),
           f"the main path must launch only the tab kernel, once per row: "
           f"{main_counts}")
     check(len(lnZ) == 21, f"{len(lnZ)} rows, expected 21")
@@ -1155,14 +1155,14 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{stage_counts}; per-row |lnZ exact kernel - lnZ torch "
           f"stage| max {dz_stage.max():.3g}, on the rows within "
           f"{LONG_NEAR_NATS} nats of the winner {dz_stage[near].max():.3g}")
-    check(_only(exact_counts, "launches_orbit_exact")
-          and exact_counts["launches_orbit_exact"] == len(lnZ),
+    check(_only(exact_counts, "launch.chi2_from_orbit_exact")
+          and exact_counts["launch.chi2_from_orbit_exact"] == len(lnZ),
           f"TRICERATOPS_COEFFS=exact must launch only the exact kernel, "
           f"once per row: {exact_counts}")
     check(dz_exact.max() < 1e-2,
           f"exact-kernel and plain lnZ differ: {dz_exact}")
-    check(_only(stage_counts, "launches_orbit")
-          and stage_counts["launches_orbit"] == len(lnZ),
+    check(_only(stage_counts, "launch.chi2_from_orbit")
+          and stage_counts["launch.chi2_from_orbit"] == len(lnZ),
           f"the torch-stage route must launch only orbit v2, once per row: "
           f"{stage_counts}")
     check(dz_stage[near].max() < 1e-2,
@@ -1222,13 +1222,13 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"{dz3_exact.max():.3g}, on the rows within {LONG_NEAR_NATS} "
           f"nats of the winner "
           f"{dz3_exact[lnZ_exact > lnZ_exact.max() - LONG_NEAR_NATS].max():.3g}")
-    check(_only(v3_counts, "launches_orbit_v3_tab")
-          and v3_counts["launches_orbit_v3_tab"] == len(lnZ),
+    check(_only(v3_counts, "launch.chi2_from_orbit_v3_tab")
+          and v3_counts["launch.chi2_from_orbit_v3_tab"] == len(lnZ),
           f"the v3 schedule must launch only the v3 tab kernel, once per "
           f"row: {v3_counts}")
     check(dz3.max() < 1e-2, f"v3 and v2 lnZ differ: {dz3}")
-    check(_only(v3_exact_counts, "launches_orbit_v3")
-          and v3_exact_counts["launches_orbit_v3"] == len(lnZ),
+    check(_only(v3_exact_counts, "launch.chi2_from_orbit_v3")
+          and v3_exact_counts["launch.chi2_from_orbit_v3"] == len(lnZ),
           f"v3 under TRICERATOPS_COEFFS=exact must launch only orbit v3, "
           f"once per row: {v3_exact_counts}")
     # the exact coefficients leave a deficit residue of ~1e-8 beyond zmax
@@ -1249,13 +1249,13 @@ def phase_slice(torch, chi2_core, tr, workdir):
     # each kernel's launches in its own path's run: the plane kernels are
     # on none
     launches = dict(
-        chi2_supersampled=main_counts["launches"],
-        chi2_supersampled_v3=v3_counts["launches_v3"],
-        chi2_from_orbit=stage_counts["launches_orbit"],
-        chi2_from_orbit_exact=exact_counts["launches_orbit_exact"],
-        chi2_from_orbit_v3=v3_exact_counts["launches_orbit_v3"],
-        chi2_from_orbit_tab=main_counts["launches_orbit_tab"],
-        chi2_from_orbit_v3_tab=v3_counts["launches_orbit_v3_tab"])
+        chi2_supersampled=main_counts["launch.chi2_supersampled"],
+        chi2_supersampled_v3=v3_counts["launch.chi2_supersampled_v3"],
+        chi2_from_orbit=stage_counts["launch.chi2_from_orbit"],
+        chi2_from_orbit_exact=exact_counts["launch.chi2_from_orbit_exact"],
+        chi2_from_orbit_v3=v3_exact_counts["launch.chi2_from_orbit_v3"],
+        chi2_from_orbit_tab=main_counts["launch.chi2_from_orbit_tab"],
+        chi2_from_orbit_v3_tab=v3_counts["launch.chi2_from_orbit_v3_tab"])
     return launches, run, t, med
 
 
@@ -1276,8 +1276,8 @@ def phase_long(chi2_core, t):
     time_ = np.sort(rng.uniform(-LONG_WINDOW, LONG_WINDOW, LONG_N_T))
     flux = planet_flux(time_, LONG_SEED + 1)
     lnZ, walls, counts = {}, {}, {}
-    for sched, counter in (("2", "launches_orbit_tab"),
-                           ("3", "launches_orbit_v3_tab")):
+    for sched, counter in (("2", "launch.chi2_from_orbit_tab"),
+                           ("3", "launch.chi2_from_orbit_v3_tab")):
         lightcurve.CHI2_SCHEDULE = sched
         try:
             calls = []
@@ -1398,9 +1398,9 @@ def phase_dormant(torch, chi2_core, workdir):
         check(d_plain.max() < 1e-2, f"{name}: kernel and plain lnZ differ "
               f"by {d_plain}")
         check(d3.max() < 1e-2, f"{name}: v3 and v2 lnZ differ by {d3}")
-        check(_only(c2, "launches_orbit_tab"),
+        check(_only(c2, "launch.chi2_from_orbit_tab"),
               f"{name}: v2 must launch only the tab kernel: {c2}")
-        check(_only(c3, "launches_orbit_v3_tab"),
+        check(_only(c3, "launch.chi2_from_orbit_v3_tab"),
               f"{name}: v3 must launch only the v3 tab kernel: {c3}")
         check(not any(c_plain.values()),
               f"{name}: the plain path launched a kernel: {c_plain}")
@@ -1432,7 +1432,8 @@ def phase_ensemble(chi2_core, t):
           f"NFPP {t.NFPP:.6g}; launches {c}")
     check(t.FPP == float(t.FPP_runs.mean()), "FPP is not the runs' mean")
     check(np.isfinite(t.FPP_std), f"FPP_std {t.FPP_std}")
-    check(_only(c, "launches_orbit_tab") and c["launches_orbit_tab"] == 63,
+    check(_only(c, "launch.chi2_from_orbit_tab")
+          and c["launch.chi2_from_orbit_tab"] == 63,
           f"the ensemble must make 63 tab-kernel launches: {c}")
     return wall
 
@@ -1600,8 +1601,8 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
         return out, time.perf_counter() - t0, _counts(chi2_core)
 
     def launches_ok(c, what):
-        check(_only(c, "launches_orbit_tab")
-              and c["launches_orbit_tab"] == expected,
+        check(_only(c, "launch.chi2_from_orbit_tab")
+              and c["launch.chi2_from_orbit_tab"] == expected,
               f"{what}: expected {expected} tab-kernel launches only, got "
               f"{c}")
 
@@ -1627,7 +1628,7 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
           f"mesh=None: cold {wall_cold:.4f} s, warm {wall_warm:.4f} s = "
           f"{wall_warm / N_BATCH:.4f} s/target (phase 6 warm median "
           f"{warm_median:.4f} s per 21-row call); "
-          f"{c_warm['launches_orbit_tab']} tab-kernel launches per call "
+          f"{c_warm['launch.chi2_from_orbit_tab']} tab-kernel launches per call "
           f"(expected {expected}); peak device "
           f"memory {peak_gib:.3f} GiB (DRAW_CAP 2^"
           f"{lightcurve.DRAW_CAP.bit_length() - 1}); cold vs warm max "
@@ -1641,8 +1642,8 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
         (_, _, lnZ1), wall, c = timed(None, one)
         walls.append(wall)
         rows_i = 15 + 3 * len(e["nearby"])
-        check(_only(c, "launches_orbit_tab")
-              and c["launches_orbit_tab"] == rows_i,
+        check(_only(c, "launch.chi2_from_orbit_tab")
+              and c["launch.chi2_from_orbit_tab"] == rows_i,
               f"phase 10 (i) target {i} alone: {c}")
         n = lnZ1.shape[1]
         check(np.array_equal(np.isneginf(lnZ1[0]), np.isneginf(lnZ[i, :n])),
@@ -1719,7 +1720,7 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
           f"{expected} tab-kernel launches; per-row lnZ within the "
           f"statistical rule of (i), largest |d| within 5 nats of the winner "
           f"{worst:.3g}")
-    return c_warm["launches_orbit_tab"]
+    return c_warm["launch.chi2_from_orbit_tab"]
 
 
 def phase_parity():
@@ -1776,8 +1777,8 @@ def phase_profile(torch, run, backends=("auto", "torch")):
         return inner
 
     def launch_counts():
-        return {n: v for n, v in vars(chi2_core).items()
-                if n.startswith("launches")}
+        return {n: v for n, v in chi2_core.profiling.counters().items()
+                if n.startswith("launch.")}
 
     marks = [(lightcurve, "deficit_coeffs", "range: deficit_coeffs"),
              (api, "lnL_planet", "range: lnL core"),

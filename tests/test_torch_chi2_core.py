@@ -33,6 +33,7 @@ from triceratops_tpu_torch.core.numerics import log_mean_exp_torch
 from triceratops_tpu_torch.ops import chi2_core
 from triceratops_tpu_torch.ops import fastcore as tfc
 from triceratops_tpu_torch.ops import lightcurve as tlc
+from triceratops_tpu_torch.utils import profiling
 
 from test_torch_shared import REPO, f32, tf
 
@@ -95,10 +96,10 @@ class TestChi2Kernel:
         arrs, offs, wgts = _chi2_inputs(ns)
         want = np.asarray(j_chi2(*map(jnp.asarray, arrs), offs=offs,
                                  wgts=wgts, interpret=True))
-        before = chi2_core.launches
+        before = _counts()
         got = chi2_core.chi2_supersampled(
             *map(torch.as_tensor, arrs), offs=offs, wgts=wgts).numpy()
-        assert chi2_core.launches == before   # CPU: plain path, no launch
+        assert _counts() == before   # CPU: plain path, no launch
         d = np.abs(got.astype(np.float64) - want) / (2 * 5e-4 ** 2)
         assert np.quantile(d, 0.99) < 0.05, np.quantile(d, 0.99)
         assert d.max() < 1.0, d.max()
@@ -112,10 +113,10 @@ class TestChi2Kernel:
         arrs, offs, wgts = _chi2_inputs(ns, C=256, n_t=n_t)
         want = np.asarray(j_chi2_v3(*map(jnp.asarray, arrs), offs=offs,
                                     wgts=wgts, interpret=True))
-        before = chi2_core.launches_v3
+        before = _counts()
         got = chi2_core.chi2_supersampled_v3(
             *map(torch.as_tensor, arrs), offs=offs, wgts=wgts).numpy()
-        assert chi2_core.launches_v3 == before
+        assert _counts() == before
         d = np.abs(got.astype(np.float64) - want) / (2 * 5e-4 ** 2)
         assert np.quantile(d, 0.99) < 0.05, np.quantile(d, 0.99)
         assert d.max() < 1.0, d.max()
@@ -174,7 +175,7 @@ class TestChi2Kernel:
         before = _counts()
         kern = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1,
                                u2, g, 100, 20)
-        assert _counts() == _plus(before, "launches_orbit_tab")
+        assert _counts() == _plus(before, "launch.chi2_from_orbit_tab")
         from triceratops_tpu_torch.ops.fastcore import (
             deficit_coeffs, exposure_z2_poly)
         cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
@@ -203,7 +204,7 @@ class TestChi2Kernel:
         before = _counts()
         kern = tlc._chi2_fused(time, 0.00139, obs, k, P, aR, inc, e, w, u1,
                                u2, g, n_t, ns)
-        assert _counts() == _plus(before, "launches_orbit_v3_tab")
+        assert _counts() == _plus(before, "launch.chi2_from_orbit_v3_tab")
         from triceratops_tpu_torch.ops.fastcore import deficit_coeffs
         from triceratops_tpu_torch.core.kepler import projected_z
         cA, cB1, cB2, *segs = deficit_coeffs(k, u1, u2)
@@ -237,7 +238,7 @@ class TestChi2Kernel:
             pytest.skip("needs a CUDA card and nvcc")
         arrs, offs, wgts = _chi2_inputs(ns, C=4096, n_t=n_t)
         t = [torch.as_tensor(x, device="cuda") for x in arrs]
-        counter = "launches" if name == "chi2_supersampled" else "launches_v3"
+        counter = f"launch.{name}"
         before = _counts()
         kern = getattr(chi2_core, name)(*t, offs=offs, wgts=wgts)
         assert _counts() == _plus(before, counter)
@@ -246,14 +247,15 @@ class TestChi2Kernel:
         assert np.quantile(d, 0.99) < 0.05 and d.max() < 1.0
 
 
-COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
-            "launches_orbit_tab", "launches_orbit_v3_tab",
-            "launches_orbit_exact", "launches_coeffs_tab",
-            "launches_coeffs_exact")
+COUNTERS = tuple(f"launch.{name}" for name in (
+    "chi2_supersampled", "chi2_supersampled_v3", "chi2_from_orbit",
+    "chi2_from_orbit_v3", "chi2_from_orbit_tab", "chi2_from_orbit_v3_tab",
+    "chi2_from_orbit_exact", "deficit_coeffs_tab", "deficit_coeffs_exact"))
 
 
 def _counts():
-    return {c: getattr(chi2_core, c) for c in COUNTERS}
+    counts = profiling.counters()
+    return {c: counts.get(c, 0) for c in COUNTERS}
 
 
 def _plus(counts, name):
@@ -277,8 +279,8 @@ def _orbit_args(a, ns, to=torch.as_tensor):
     return args, offs, wgts
 
 
-ORBIT = {"2": ("chi2_from_orbit", "launches_orbit"),
-         "3": ("chi2_from_orbit_v3", "launches_orbit_v3")}
+ORBIT = {"2": ("chi2_from_orbit", "launch.chi2_from_orbit"),
+         "3": ("chi2_from_orbit_v3", "launch.chi2_from_orbit_v3")}
 
 
 class TestOrbitKernel:
@@ -581,7 +583,7 @@ class TestTabKernel:
         before = _counts()
         kern = chi2_core.chi2_from_orbit_tab(*args, offs=offs, wgts=wgts,
                                              ns=ns)
-        assert _counts() == _plus(before, "launches_orbit_tab")
+        assert _counts() == _plus(before, "launch.chi2_from_orbit_tab")
         plain = chi2_core.chi2_from_orbit_tab_plain(*args, offs=offs,
                                                     wgts=wgts, ns=ns)
         inv = 1.0 / (2 * 5e-4 ** 2)
@@ -608,7 +610,7 @@ class TestTabKernel:
         want = tfc.cheb_deficit_coeffs_tab(*cpu)
         before = _counts()
         got = chi2_core.deficit_coeffs_tab(*(x.cuda() for x in cpu))
-        assert _counts() == _plus(before, "launches_coeffs_tab")
+        assert _counts() == _plus(before, "launch.deficit_coeffs_tab")
         for x, y in zip(got, want):
             assert float((x.cpu() - y).abs().max()) < 3e-6
 
@@ -630,7 +632,7 @@ class TestTabKernel:
         kw = dict(offs=offs, wgts=wgts, ns=20)
         before = _counts()
         kern = chi2_core.chi2_from_orbit_tab(*args, **kw)
-        assert _counts() == _plus(before, "launches_orbit_tab")
+        assert _counts() == _plus(before, "launch.chi2_from_orbit_tab")
         singles = torch.cat([chi2_core.chi2_from_orbit_tab(*p[0], **kw)
                              for p in per])
         torch.testing.assert_close(kern, singles, rtol=0, atol=0)
@@ -712,7 +714,7 @@ class TestV3TabKernel:
         before = _counts()
         kern = chi2_core.chi2_from_orbit_v3_tab(*args, offs=offs, wgts=wgts,
                                                 ns=ns)
-        assert _counts() == _plus(before, "launches_orbit_v3_tab")
+        assert _counts() == _plus(before, "launch.chi2_from_orbit_v3_tab")
         plain = chi2_core.chi2_from_orbit_tab_plain(*args, offs=offs,
                                                     wgts=wgts, ns=ns)
         inv = 1.0 / (2 * 5e-4 ** 2)
@@ -742,7 +744,7 @@ class TestV3TabKernel:
         kw = dict(offs=offs, wgts=wgts, ns=20)
         before = _counts()
         kern = chi2_core.chi2_from_orbit_v3_tab(*args, **kw)
-        assert _counts() == _plus(before, "launches_orbit_v3_tab")
+        assert _counts() == _plus(before, "launch.chi2_from_orbit_v3_tab")
         singles = torch.cat([chi2_core.chi2_from_orbit_v3_tab(*p[0], **kw)
                              for p in per])
         torch.testing.assert_close(kern, singles, rtol=0, atol=0)

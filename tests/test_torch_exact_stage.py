@@ -37,20 +37,22 @@ from triceratops_tpu_torch.core.numerics import log_mean_exp_torch
 from triceratops_tpu_torch.ops import chi2_core
 from triceratops_tpu_torch.ops import fastcore as tfc
 from triceratops_tpu_torch.ops import lightcurve as tlc
+from triceratops_tpu_torch.utils import profiling
 
 from test_torch_shared import f32
 
 EXPTIME = 0.00139
 SIGMA = 5e-4
 COEFF_TOL = 3e-6
-COUNTERS = ("launches", "launches_v3", "launches_orbit", "launches_orbit_v3",
-            "launches_orbit_tab", "launches_orbit_v3_tab",
-            "launches_orbit_exact", "launches_coeffs_tab",
-            "launches_coeffs_exact")
+COUNTERS = tuple(f"launch.{name}" for name in (
+    "chi2_supersampled", "chi2_supersampled_v3", "chi2_from_orbit",
+    "chi2_from_orbit_v3", "chi2_from_orbit_tab", "chi2_from_orbit_v3_tab",
+    "chi2_from_orbit_exact", "deficit_coeffs_tab", "deficit_coeffs_exact"))
 
 
 def _counts():
-    return {c: getattr(chi2_core, c) for c in COUNTERS}
+    counts = profiling.counters()
+    return {c: counts.get(c, 0) for c in COUNTERS}
 
 
 def _kud(rng, N):
@@ -357,7 +359,7 @@ def test_kernel_matches_plain_on_card(n_t, ns):
     before = _counts()
     kern = chi2_core.chi2_from_orbit_exact(*args, offs=offs, wgts=wgts,
                                            ns=ns)
-    assert _counts() == _plus(before, "launches_orbit_exact")
+    assert _counts() == _plus(before, "launch.chi2_from_orbit_exact")
     plain = chi2_core.chi2_from_orbit_exact_plain(
         *args, offs=offs, wgts=wgts, ns=ns, group=chi2_core.V2_GROUP)
     inv = 1.0 / (2 * SIGMA ** 2)
@@ -416,7 +418,7 @@ def test_coeffs_match_cpu_on_card():
         torch.cuda.synchronize()
     finally:
         torch.set_float32_matmul_precision(prev)
-    assert _counts() == _plus(before, "launches_coeffs_exact")
+    assert _counts() == _plus(before, "launch.deficit_coeffs_exact")
     for x, y in zip(got, want):
         assert float((x.cpu() - y).abs().max()) < COEFF_TOL
 
@@ -436,7 +438,7 @@ def test_targets_in_one_launch_on_card():
     kw = dict(offs=offs, wgts=wgts, ns=20)
     before = _counts()
     kern = chi2_core.chi2_from_orbit_exact(*_port_args(per, cuda), **kw)
-    assert _counts() == _plus(before, "launches_orbit_exact")
+    assert _counts() == _plus(before, "launch.chi2_from_orbit_exact")
     singles = torch.cat([chi2_core.chi2_from_orbit_exact(
         *_port_args([a], cuda), **kw) for a in per])
     torch.testing.assert_close(kern, singles, rtol=0, atol=0)
@@ -452,8 +454,8 @@ def test_fused_route_on_card(monkeypatch):
     a = _draws(N=4096, n_t=100)
     time, obs, k, P, aR, inc, e, w, u1, u2, g = (
         torch.as_tensor(x, device="cuda") for x in a)
-    for sched, counter in (("2", "launches_orbit_exact"),
-                           ("3", "launches_orbit_v3")):
+    for sched, counter in (("2", "launch.chi2_from_orbit_exact"),
+                           ("3", "launch.chi2_from_orbit_v3")):
         monkeypatch.setattr(tlc, "CHI2_SCHEDULE", sched)
         before = _counts()
         tlc._chi2_fused(time, EXPTIME, obs, k, P, aR, inc, e, w, u1, u2, g,

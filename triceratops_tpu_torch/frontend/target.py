@@ -27,6 +27,7 @@ from scipy.special import ndtr
 from ..core.numerics import normalize_probabilities
 from ..funcs import renorm_flux, save_trilegal, query_TRILEGAL, get_aperture
 from ..scenarios import api as sc
+from ..utils import profiling
 
 _RES_FIELDS = ["M_s", "R_s", "u1", "u2", "P_orb", "inc", "b", "R_p", "ecc",
                "argp", "M_EB", "R_EB", "fluxratio_EB", "fluxratio_comp"]
@@ -112,6 +113,7 @@ class target:
         self._finish_init(stars)
 
     @classmethod
+    @profiling.span("tri.frontend.from_stars")
     def from_stars(cls, stars: pd.DataFrame, ID: int = 0, sectors=(1,),
                    mission: str = "TESS", search_radius: int = 10,
                    pix_coords=None, trilegal_fname=None):
@@ -272,6 +274,7 @@ class target:
             print("No SPOC apertures available.")
         return aps
 
+    @profiling.span("tri.frontend.calc_depths")
     def calc_depths(self, tdepth: float, all_ap_pixels=None):
         """Required transit depth per star from the analytic Gaussian-PSF
         (sigma = 0.75 px) aperture integral (reference
@@ -324,6 +327,7 @@ class target:
                       "(in K) are not added to the .stars dataframe, Solar "
                       "values will be assumed.")
 
+    @profiling.span("tri.call")
     def calc_probs(self, time: np.ndarray, flux_0: np.ndarray,
                    flux_err_0: float, P_orb, contrast_curve_file: str = None,
                    filt: str = "TESS", N: int = 1000000,
@@ -347,7 +351,12 @@ class target:
         ``device``: where the Monte-Carlo work runs (default "cuda").
         ``backend``: likelihood path, "auto" (the fused chi^2 kernel on
         CUDA) or "torch" (plain torch). ``lc_window`` (days) crops the
-        folded curve to |time| <= lc_window."""
+        folded curve to |time| <= lc_window.
+
+        Spans (``utils/profiling.py``): the call in ``tri.call``, each
+        evidence call in ``tri.row.<row>`` (TP, EB, ..., NTP and NEB of
+        each nearby star) and the one device-to-host read of the results
+        in ``tri.gather``."""
         if "tdepth" not in self.stars.columns:
             raise RuntimeError(
                 "calc_depths(tdepth, ...) must be called before "
@@ -466,7 +475,8 @@ class target:
                             put(j + off, ID, row, snum)
                         continue
                     log(" and ".join(names))
-                    res = run()
+                    with profiling.span(f"tri.row.{name}"):
+                        res = run()
                     for off, row in enumerate(names):
                         put(j + off, ID, row, snum,
                             res if len(names) == 1 else res[off])
@@ -482,10 +492,13 @@ class target:
                 if verbose == 1:
                     print("Calculating NTP, NEB, and NEB2xP scenario "
                           f"probabilities for {ID}.")
-                put(15 + 3 * (i - 1), ID, "NTP", 1, sc.lnZ_TTP(
-                    time, flux, flux_err, P_orb, M_s, R_s, Teff, Z, **base))
-                res, res_t = sc.lnZ_TEB(time, flux, flux_err, P_orb, M_s,
-                                        R_s, Teff, Z, **base)
+                with profiling.span("tri.row.NTP"):
+                    res = sc.lnZ_TTP(time, flux, flux_err, P_orb, M_s, R_s,
+                                     Teff, Z, **base)
+                put(15 + 3 * (i - 1), ID, "NTP", 1, res)
+                with profiling.span("tri.row.NEB"):
+                    res, res_t = sc.lnZ_TEB(time, flux, flux_err, P_orb, M_s,
+                                            R_s, Teff, Z, **base)
                 put(16 + 3 * (i - 1), ID, "NEB", 1, res)
                 put(17 + 3 * (i - 1), ID, "NEBx2P", 1, res_t)
 
@@ -504,7 +517,8 @@ class target:
                     else:
                         vals[i, fi] = float(np.atleast_1d(np.asarray(v))[0])
             if dev_leaves:
-                flat = torch.stack(dev_leaves).cpu().numpy()
+                with profiling.span("tri.gather"):
+                    flat = torch.stack(dev_leaves).cpu().numpy()
                 for (i, fi), x in zip(dev_slots, flat):
                     vals[i, fi] = float(x)
             for i, (j, _) in enumerate(deferred):

@@ -12,6 +12,8 @@ service or the package is unavailable.
 import numpy as np
 from pandas import read_csv
 
+from .utils import profiling
+
 
 def color_Teff_relations(V, Ks):
     """V - Ks -> Teff (reference funcs.py:143-161; not on the main path)."""
@@ -128,11 +130,14 @@ def save_trilegal(output_url, ID):
     return fname
 
 
+@profiling.span("tri.io.trilegal")
 def trilegal_results(trilegal_fname: str, Tmag: float):
     """Parse a saved TRILEGAL csv (reference funcs.py:335-403): drop its
     last two lines (the service's termination banner), compute Tmag from
     J - Ks (Stassun et al. 2018) when the TESS column is absent, and keep
-    the stars no brighter than the target (Tmags >= Tmag)."""
+    the stars no brighter than the target (Tmags >= Tmag). Counts
+    ``io.trilegal_read``."""
+    profiling.count("io.trilegal_read")
     df = read_csv(trilegal_fname)[:-2]
     Masses = df["Mact"].values.astype(float)
     loggs = df["logg"].values.astype(float)

@@ -41,11 +41,12 @@ plain torch version (``chi2_supersampled_plain``,
 ``chi2_from_orbit_exact_plain``, ``fastcore.cheb_deficit_coeffs_tab``,
 ``fastcore.cheb_deficit_coeffs``). There is no fallback between them.
 
-``launches``, ``launches_v3``, ``launches_orbit``, ``launches_orbit_v3``,
-``launches_orbit_tab``, ``launches_orbit_v3_tab``, ``launches_orbit_exact``,
-``launches_coeffs_tab`` and ``launches_coeffs_exact`` count kernel
-launches (not plain-path calls), so a run can show which kernel its main
-path went through.
+Each kernel launch (not a plain-path call) runs in the span
+``tri.launch.<instance>`` and adds one to the counter
+``launch.<instance>`` of ``utils/profiling.py``, the instance being the
+entry point's name (``deficit_coeffs_tab`` / ``_exact`` for the
+coefficient functions), so a run can show which kernel its main path went
+through; ``build.chi2`` counts the library's nvcc builds.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ import torch
 
 from ..core.kepler import E_MAX, projected_z
 from ..tables import dct_nodes, load_tables
+from ..utils import profiling
 from .fastcore import (
     M_CHEB, TAB_SEGMENTS, _BREAK_FLOOR, _BREAK_SLOPE, _TAB_BREAKS, _TAB_DEGS,
     cheb_deficit_coeffs, cheb_deficit_coeffs_tab, cheb_deficit_eval,
@@ -74,16 +76,6 @@ DRAW_LANES = 128    # v3: C % DRAW_LANES == 0
 V2_GROUP = 32       # v2: points of one draw whose deficit is skipped at once
 V3_DRAWS = 8        # draws a warp of the v3 kernels takes at once
 MAX_NODES = 4
-
-launches = 0
-launches_v3 = 0
-launches_orbit = 0
-launches_orbit_v3 = 0
-launches_orbit_tab = 0
-launches_orbit_v3_tab = 0
-launches_orbit_exact = 0
-launches_coeffs_tab = 0
-launches_coeffs_exact = 0
 
 # The v3 kernels' transit-window margins (csrc/chi2_supersampled.cu,
 # transit_window): a pad in mean anomaly (rad), a relative margin for
@@ -181,6 +173,7 @@ def build(verbose: bool = False) -> Path:
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), *(str(_CSRC / n) for n in _SOURCES)]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    profiling.count("build.chi2")
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     if verbose:
@@ -360,19 +353,22 @@ def chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg, g,
 def _launch(name, arrays, C, n_t, offs, wgts, *flags):
     """Launch one kernel of the library on the current stream: the device
     pointers of ``arrays`` and the output, then C, n_t, the nodes and
-    ``flags``; raises if the launch is refused."""
+    ``flags``; raises if the launch is refused. Counts ``launch.<name>``."""
     lib = _load()
-    out = torch.empty((C,), dtype=torch.float32, device=arrays[0].device)
-    offs_h = (ctypes.c_float * len(offs))(*offs)
-    wgts_h = (ctypes.c_float * len(wgts))(*wgts)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{name}_launch")(
-            *(a.data_ptr() for a in arrays), out.data_ptr(), C, n_t,
-            ctypes.addressof(offs_h), ctypes.addressof(wgts_h), len(offs),
-            *flags, stream)
+    with profiling.span(f"tri.launch.{name}"):
+        out = torch.empty((C,), dtype=torch.float32,
+                          device=arrays[0].device)
+        offs_h = (ctypes.c_float * len(offs))(*offs)
+        wgts_h = (ctypes.c_float * len(wgts))(*wgts)
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = getattr(lib, f"{name}_launch")(
+                *(a.data_ptr() for a in arrays), out.data_ptr(), C, n_t,
+                ctypes.addressof(offs_h), ctypes.addressof(wgts_h),
+                len(offs), *flags, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    profiling.count(f"launch.{name}")
     return out
 
 
@@ -405,18 +401,15 @@ def chi2_supersampled(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, *,
     C must be a multiple of 256. A CPU tensor runs the plain version; a
     CUDA tensor launches the kernel.
     """
-    global launches
     offs, wgts = _nodes(offs, wgts)
     _check(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev, offs, wgts,
            DRAW_TILE)
     if not _device_path(q0):
         return chi2_supersampled_plain(q0, q1, q2, front, cA, cB1, cB2, seg,
                                        g, obs_dev, offs=offs, wgts=wgts)
-    out = _launch("chi2_supersampled", (q0, q1, q2, front, cA, cB1, cB2,
-                                        seg, g, obs_dev), *q0.shape, offs,
-                  wgts)
-    launches += 1
-    return out
+    return _launch("chi2_supersampled", (q0, q1, q2, front, cA, cB1, cB2,
+                                         seg, g, obs_dev), *q0.shape, offs,
+                   wgts)
 
 
 def time_major(q0, q1, q2, front):
@@ -428,13 +421,11 @@ def time_major(q0, q1, q2, front):
 def launch_v3(planes_t, cA, cB1, cB2, seg, g, obs_dev, *, offs, wgts):
     """Launch the v3 kernel on time-major planes (``time_major``); CUDA
     tensors already checked by ``chi2_supersampled_v3``."""
-    global launches_v3
     offs, wgts = _nodes(offs, wgts)
     n_t, C = planes_t[0].shape
-    out = _launch("chi2_supersampled_v3", (*planes_t, cA, cB1, cB2, seg, g,
-                                           obs_dev), C, n_t, offs, wgts)
-    launches_v3 += 1
-    return out
+    return _launch("chi2_supersampled_v3",
+                   (*planes_t, cA, cB1, cB2, seg, g, obs_dev), C, n_t, offs,
+                   wgts)
 
 
 def chi2_supersampled_v3(q0, q1, q2, front, cA, cB1, cB2, seg, g, obs_dev,
@@ -511,16 +502,13 @@ def chi2_from_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
     Cb must be a multiple of 256. A CPU tensor runs the plain version; a
     CUDA tensor launches the kernel, once for all B targets.
     """
-    global launches_orbit
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev)
     Cb = _check_orbit(*args, offs, wgts, ns, DRAW_TILE)
     if not _device_path(P):
         return chi2_from_orbit_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch("chi2_from_orbit", args, P.shape[0], time.shape[-1], offs,
-                  wgts, int(ns == 1), Cb)
-    launches_orbit += 1
-    return out
+    return _launch("chi2_from_orbit", args, P.shape[0], time.shape[-1], offs,
+                   wgts, int(ns == 1), Cb)
 
 
 def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
@@ -529,16 +517,13 @@ def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
     arguments, checks and result as ``chi2_from_orbit``, with Cb a multiple
     of 128; the kernel skips the solve outside each draw's transit window,
     as ``chi2_from_orbit_v3_tab`` does."""
-    global launches_orbit_v3
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev)
     Cb = _check_orbit(*args, offs, wgts, ns, DRAW_LANES)
     if not _device_path(P):
         return chi2_from_orbit_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch("chi2_from_orbit_v3", args, P.shape[0], time.shape[-1],
-                  offs, wgts, int(ns == 1), Cb)
-    launches_orbit_v3 += 1
-    return out
+    return _launch("chi2_from_orbit_v3", args, P.shape[0], time.shape[-1],
+                   offs, wgts, int(ns == 1), Cb)
 
 
 def _device_table(device, name="tab_C"):
@@ -606,15 +591,12 @@ def chi2_from_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, *,
     CUDA tensor launches the kernel, once for all B targets, and a draw's
     result is the same whatever else the launch holds.
     """
-    global launches_orbit_tab
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
     Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_TILE)
     if not _device_path(P):
         return chi2_from_orbit_tab_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch_kud("chi2_from_orbit_tab", "tab", args, offs, wgts, ns, Cb)
-    launches_orbit_tab += 1
-    return out
+    return _launch_kud("chi2_from_orbit_tab", "tab", args, offs, wgts, ns, Cb)
 
 
 def chi2_from_orbit_exact(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
@@ -630,17 +612,14 @@ def chi2_from_orbit_exact(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
     launches the kernel, once for all B targets, and a draw's result is
     the same whatever else the launch holds.
     """
-    global launches_orbit_exact
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
     Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_TILE)
     if not _device_path(P):
         return chi2_from_orbit_exact_plain(*args, offs=offs, wgts=wgts,
                                            ns=ns)
-    out = _launch_kud("chi2_from_orbit_exact", "exact", args, offs, wgts, ns,
-                      Cb)
-    launches_orbit_exact += 1
-    return out
+    return _launch_kud("chi2_from_orbit_exact", "exact", args, offs, wgts, ns,
+                       Cb)
 
 
 def _launch_kud(name, stage, args, offs, wgts, ns, Cb):
@@ -666,16 +645,13 @@ def chi2_from_orbit_v3_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
     (``transit_window``); the rest add nothing but obs^2, as a skipped
     point of the v2 kernels does. A CPU tensor runs the plain version
     (``chi2_from_orbit_tab_plain``)."""
-    global launches_orbit_v3_tab
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
     Cb = _check_orbit_tab(*args, offs, wgts, ns, DRAW_LANES)
     if not _device_path(P):
         return chi2_from_orbit_tab_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    out = _launch_kud("chi2_from_orbit_v3_tab", "tab", args, offs, wgts, ns,
-                      Cb)
-    launches_orbit_v3_tab += 1
-    return out
+    return _launch_kud("chi2_from_orbit_v3_tab", "tab", args, offs, wgts, ns,
+                       Cb)
 
 
 def _ecc_anomaly(f, sm, sp):
@@ -762,18 +738,21 @@ def _coeffs_launch(stage, k, u1, u2):
     ``fastcore.cheb_deficit_coeffs``."""
     lib = _load()
     C = k.shape[0]
-    out = torch.empty((C, 3 * M_CHEB + 5), dtype=torch.float32,
-                      device=k.device)
+    name = f"deficit_coeffs_{stage}"
     _, table, consts = _STAGES[stage]
     consts = consts()
-    with torch.cuda.device(k.device):
-        err = getattr(lib, f"deficit_coeffs_{stage}_launch")(
-            k.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-            _device_table(k.device, table).data_ptr(), out.data_ptr(), C,
-            ctypes.addressof(consts), torch.cuda.current_stream().cuda_stream)
+    with profiling.span(f"tri.launch.{name}"):
+        out = torch.empty((C, 3 * M_CHEB + 5), dtype=torch.float32,
+                          device=k.device)
+        with torch.cuda.device(k.device):
+            err = getattr(lib, f"{name}_launch")(
+                k.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+                _device_table(k.device, table).data_ptr(), out.data_ptr(), C,
+                ctypes.addressof(consts),
+                torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"deficit_coeffs_{stage} kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    profiling.count(f"launch.{name}")
     m = M_CHEB
     return (out[:, :m], out[:, m:2 * m], out[:, 2 * m:3 * m],
             *out[:, 3 * m:].unbind(1))
@@ -793,13 +772,10 @@ def deficit_coeffs_tab(k, u1, u2):
     coefficient function over the draws (``deficit_coeffs_tab_launch``),
     on a CPU tensor the torch version. For checking the in-kernel
     coefficients; no path calls it."""
-    global launches_coeffs_tab
     _check_kud(k, u1, u2)
     if not _device_path(k):
         return cheb_deficit_coeffs_tab(k, u1, u2)
-    out = _coeffs_launch("tab", k, u1, u2)
-    launches_coeffs_tab += 1
-    return out
+    return _coeffs_launch("tab", k, u1, u2)
 
 
 def deficit_coeffs_exact(k, u1, u2):
@@ -808,13 +784,10 @@ def deficit_coeffs_exact(k, u1, u2):
     the kernel's own coefficient function over the draws
     (``deficit_coeffs_exact_launch``), on a CPU tensor the torch version.
     For checking the in-kernel coefficients; no path calls it."""
-    global launches_coeffs_exact
     _check_kud(k, u1, u2)
     if not _device_path(k):
         return cheb_deficit_coeffs(k, u1, u2)
-    out = _coeffs_launch("exact", k, u1, u2)
-    launches_coeffs_exact += 1
-    return out
+    return _coeffs_launch("exact", k, u1, u2)
 
 
 def _info(fn_name, args, device):

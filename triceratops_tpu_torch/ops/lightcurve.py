@@ -29,6 +29,10 @@ Paths per call:
 The EB secondary-eclipse veto (diluted secondary depth >= 1.5 sigma) is a
 mask: excluded draws keep zero weight but count in N_total.
 
+Each core runs in the span ``tri.core.lnL_planet`` / ``tri.core.lnL_eb``
+(the EB veto in ``tri.core.veto``) of ``utils/profiling.py`` and adds its
+draws to the counter ``draws.core``.
+
 A core takes one target (time and obs_dev (n_t,), sigma a scalar) or B
 targets at once, the counterpart of the JAX package's ``jax.vmap`` over a
 core (``parallel/sharding.py::_build_family_step``): time and obs_dev
@@ -50,6 +54,7 @@ import torch
 
 from ..core.kepler import projected_z
 from ..core.numerics import full_precision_matmul
+from ..utils import profiling
 from . import chi2_core, fastcore
 from .fastcore import (
     deficit_coeffs, cheb_deficit_eval, exposure_z2_poly, z_supersampled,
@@ -306,6 +311,7 @@ def _chunk_chi2(time, exptime, obs_dev, kc, Pc, ac, ic, ec, wc, u1c, u2c,
     return torch.sum(resid * resid, dim=1)
 
 
+@profiling.span("tri.core.veto")
 def _secondary_depth(sec_grid, P, a_R, inc, e, w, ksec, u1, u2, g_sec):
     """Diluted secondary-eclipse depth per draw: the deficit is monotone
     non-increasing in z, so the 25-point scan's maximum is one exact
@@ -377,6 +383,7 @@ def _check_backend(backend):
         raise ValueError(f"backend must be 'auto' or 'torch', got {backend!r}")
 
 
+@profiling.span("tri.core.lnL_planet")
 def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
                *, exptime: float, n_t: int, ns: int,
                chunk: int | None = None, exact: bool = False,
@@ -389,6 +396,7 @@ def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
     marginal_likelihoods.py:117-137). ``chunk`` (draws per step and
     target) is picked by ``_core_chunk`` unless given."""
     _check_backend(backend)
+    profiling.count("draws.core", k.shape[0])
     time, obs_dev, _, N, const, inv = _targets(time, obs_dev, sigma,
                                                k.shape[0])
     B = time.shape[0]
@@ -404,6 +412,7 @@ def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
     return _unpad(out, B, N)
 
 
+@profiling.span("tri.core.lnL_eb")
 def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
            g_pri, g_sec, mask, *, exptime: float, n_t: int, ns: int,
            chunk: int | None = None, apply_veto: bool = True,
@@ -416,6 +425,7 @@ def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
     (ref likelihoods.py:535-538); the twin branch passes
     apply_veto=False. Targets and ``chunk`` as in ``lnL_planet``."""
     _check_backend(backend)
+    profiling.count("draws.core", k.shape[0])
     time, obs_dev, sig, N, const, inv = _targets(time, obs_dev, sigma,
                                                  k.shape[0])
     B = time.shape[0]

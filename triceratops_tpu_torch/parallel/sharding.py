@@ -30,6 +30,12 @@ draws from its own ``torch.Generator``, seeded from
 as the slots, so a draw shard's stream does not depend on the grid's
 other ranks or on the other targets of its batch.
 
+Spans (``utils/profiling.py``): ``batch_fpp_full`` in ``tri.call``, each
+family in ``tri.row.<family>`` (NTP and NEB a nearby slot), the
+reductions in ``tri.reduce``, the final read in ``tri.gather``;
+``prepare_target_batch`` in ``tri.batch.prepare``, ``target_entry`` in
+``tri.batch.entry``.
+
 ``batch_fpp_tp_eb`` runs the (TP, EB, EBx2P) set; ``batch_fpp_full`` the
 15 target-star scenarios plus NTP / NEB / NEBx2P per nearby star (the
 whole calc_probs taxonomy); ``prepare_target_batch`` assembles the
@@ -53,6 +59,7 @@ from ..populations.ldc import lookup_target, grid_at_Z
 from ..populations.molusc import load_molusc_kept
 from ..scenarios import engine as eng
 from ..scenarios.api import _prep_background
+from ..utils import profiling
 
 F32 = np.float32
 
@@ -126,6 +133,7 @@ def _wire(x, mesh):
     return x.cpu() if mesh.backend == "gloo" else x
 
 
+@profiling.span("tri.reduce")
 def _local_lnZ_parts(lnL):
     """(local max, local scaled sumexp) along the last axis, for a
     distributed logsumexp: (B,) tensors for a (B, N) block of B targets'
@@ -145,6 +153,7 @@ def _cat(ds, *names):
     return [torch.cat([d[n] for d in ds]) for n in names]
 
 
+@profiling.span("tri.reduce")
 def _combine_lnZ(m, s, ln_n_total, mesh):
     """Cross-rank logsumexp - log(N_total) over the draws axis, for a
     whole (B_local, R) block of (m, s) in one all_reduce(MAX) and one
@@ -290,6 +299,7 @@ def _logg(M_s, R_s):
     return float(np.log10(G * (M_s * MSUN) / (R_s * RSUN) ** 2))
 
 
+@profiling.span("tri.batch.prepare")
 def prepare_target_batch(targets: list[dict], mission: str = "TESS",
                          device="cuda"):
     """Stack per-target host inputs into the batch dict of
@@ -377,11 +387,13 @@ def prepare_target_batch(targets: list[dict], mission: str = "TESS",
             f"molusc_file set on {n_molusc}/{B} targets: the molusc "
             "switch is batch-wide (all targets or none)")
     if n_molusc:
-        kept = [load_molusc_kept(t["molusc_file"], t["M_s"])
-                for t in targets]
-        n_q = max(max(len(q) for q in kept), 1)
-        batch["molusc_qs"] = tens(np.stack(
-            [np.pad(np.asarray(q, F32), (0, n_q - len(q))) for q in kept]))
+        with profiling.span("tri.io.molusc"):
+            kept = [load_molusc_kept(t["molusc_file"], t["M_s"])
+                    for t in targets]
+            n_q = max(max(len(q) for q in kept), 1)
+            batch["molusc_qs"] = tens(np.stack(
+                [np.pad(np.asarray(q, F32), (0, n_q - len(q)))
+                 for q in kept]))
         batch["molusc_kept"] = np.asarray([len(q) for q in kept], np.int32)
 
     K = max((len(t.get("nearby", ())) for t in targets), default=0)
@@ -410,6 +422,7 @@ def prepare_target_batch(targets: list[dict], mission: str = "TESS",
     return batch, n_t, has_cc
 
 
+@profiling.span("tri.batch.entry")
 def target_entry(t, time, flux, sigma, P_orb, key=None, Z=0.0):
     """The ``prepare_target_batch`` dict of a frontend ``target`` that
     ``calc_depths`` has run on, set up as ``calc_probs`` sees it: the
@@ -439,6 +452,7 @@ def _n_rows(batch):
     return 15 + (3 * nearby["valid"].shape[1] if nearby is not None else 0)
 
 
+@profiling.span("tri.call")
 def batch_fpp_full(mesh, batch: dict, *, N: int, n_t: int, ns: int,
                    chunk: int | None = None, exptime: float = 0.00139,
                    flatpriors: bool = False, has_cc: bool = False,
@@ -502,7 +516,9 @@ def batch_fpp_full(mesh, batch: dict, *, N: int, n_t: int, ns: int,
                         device=device)
     lnZv = _gather_targets(_combine_lnZ(m, s, ln_n, mesh), mesh)
     fpp, nfpp, lnZv = _combine_rows(lnZv)
-    out = torch.cat([fpp[:, None], nfpp[:, None], lnZv], dim=1).cpu().numpy()
+    out = torch.cat([fpp[:, None], nfpp[:, None], lnZv], dim=1)
+    with profiling.span("tri.gather"):
+        out = out.cpu().numpy()
     return out[:, 0], out[:, 1], out[:, 2:]
 
 
@@ -675,10 +691,11 @@ def _family_step(batch, targets, R, cfg, dev):
     for fam, idxs in _FAMILY_ROWS:
         if set(idxs) <= drop:
             continue
-        draws = [_sample(fam, x, batch, b, cfg, dev)
-                 for b, x in zip(targets, xs)]
-        (planet if len(idxs) == 1 else eb_pair)(idxs[0], draws, every, obs,
-                                                sigma)
+        with profiling.span(f"tri.row.{fam}"):
+            draws = [_sample(fam, x, batch, b, cfg, dev)
+                     for b, x in zip(targets, xs)]
+            (planet if len(idxs) == 1 else eb_pair)(idxs[0], draws, every,
+                                                    obs, sigma)
 
     # nearby-star rows: NTP and NEB / NEBx2P per slot over the targets where
     # it is valid, on the curve renormalized for that star's share of the
@@ -693,20 +710,28 @@ def _family_step(batch, targets, R, cfg, dev):
         fr = nearby["fluxratio"][gb, kk]
         obs_k = obs[rows] / torch.as_tensor(fr[:, None], device=dev)
         slot = _NEARBY_SLOT + kk
-        tp, eb = [], []
+        stars = []
         for i, b in zip(rows, gb):
-            nM, nR, nT = (nearby[f][b, kk] for f in ("M_s", "R_s", "Teff"))
             nu1, nu2 = (torch.full((N_local,), float(nearby[f][b, kk]),
                                    device=dev) for f in ("u1", "u2"))
-            seed, P_orb = xs[i]["seed"], xs[i]["P_orb"]
-            d = eng.sample_planet_target(
-                _generator(seed, d_idx, slot, 0, device=dev), P_orb, P_orb,
-                nM, nR, N=N_local, flatpriors=cfg["flatpriors"])
-            tp.append((d, nu1, nu2, torch.ones_like(nu1), 0.0))
-            d = eng.sample_teb(_generator(seed, d_idx, slot, 1, device=dev),
-                               P_orb, P_orb, nM, nR, nT, N=N_local,
-                               twin_n=cfg["twin_local"])
-            eb.append((d, nu1, nu2, None, 0.0))
-        planet(15 + 3 * kk, tp, rows, obs_k, sigma[rows] / fr)
-        eb_pair(16 + 3 * kk, eb, rows, obs_k, sigma[rows] / fr)
+            stars.append((xs[i]["seed"], xs[i]["P_orb"], nu1, nu2,
+                          *(nearby[f][b, kk] for f in ("M_s", "R_s",
+                                                       "Teff"))))
+        # each star's NTP and NEB draws come from generators of their own,
+        # so drawing every star's NTP draws before any NEB draws changes no
+        # draw
+        with profiling.span("tri.row.NTP"):
+            tp = [(eng.sample_planet_target(
+                      _generator(seed, d_idx, slot, 0, device=dev), P_orb,
+                      P_orb, nM, nR, N=N_local, flatpriors=cfg["flatpriors"]),
+                   nu1, nu2, torch.ones_like(nu1), 0.0)
+                  for seed, P_orb, nu1, nu2, nM, nR, _ in stars]
+            planet(15 + 3 * kk, tp, rows, obs_k, sigma[rows] / fr)
+        with profiling.span("tri.row.NEB"):
+            eb = [(eng.sample_teb(
+                      _generator(seed, d_idx, slot, 1, device=dev), P_orb,
+                      P_orb, nM, nR, nT, N=N_local,
+                      twin_n=cfg["twin_local"]), nu1, nu2, None, 0.0)
+                  for seed, P_orb, nu1, nu2, nM, nR, nT in stars]
+            eb_pair(16 + 3 * kk, eb, rows, obs_k, sigma[rows] / fr)
     return m, s

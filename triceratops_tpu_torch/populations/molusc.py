@@ -14,10 +14,14 @@ from __future__ import annotations
 import numpy as np
 from pandas import read_csv
 
+from ..utils import profiling
+
 
 def load_molusc_kept(molusc_file: str, M_s: float) -> np.ndarray:
     """Surviving companion mass ratios (un-padded), with the reference's
-    periastron cut and mass-ratio floor (ml.py:455-464)."""
+    periastron cut and mass-ratio floor (ml.py:455-464). Counts
+    ``io.molusc_read``."""
+    profiling.count("io.molusc_read")
     df = read_csv(molusc_file)
     a = df["semi-major axis(AU)"].values
     e = df["eccentricity"].values

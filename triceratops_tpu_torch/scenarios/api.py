@@ -32,6 +32,7 @@ from ..funcs import file_to_contrast_curve, trilegal_results
 from ..populations.ldc import lookup_target, grid_at_Z, lookup_stars
 from ..populations.molusc import load_molusc_qs
 from ..ops.lightcurve import lnL_planet, lnL_eb
+from ..utils import profiling
 from . import engine as eng
 
 F32 = np.float32
@@ -119,11 +120,13 @@ def _cc(contrast_curve_file, filt, device):
 
 def _molusc(molusc_file, M_s, N, device):
     """(qs_comp_in, use_molusc): the MOLUSC mass ratios zero-padded to N,
-    or zeros and False without a MOLUSC file."""
+    or zeros and False without a MOLUSC file; the read and the upload run
+    in the span ``tri.io.molusc``."""
     if molusc_file is None:
         return torch.zeros((N,), device=device), False
-    qs = load_molusc_qs(molusc_file, M_s, N).astype(F32)
-    return torch.as_tensor(qs, device=device), True
+    with profiling.span("tri.io.molusc"):
+        qs = load_molusc_qs(molusc_file, M_s, N).astype(F32)
+        return torch.as_tensor(qs, device=device), True
 
 
 def _file_sig(path):

@@ -22,6 +22,10 @@ including the Latin-hypercube permutation uniforms of ``_lattice_strat``,
 and every drawn star or MOLUSC-row index through another,
 ``_randint(gen, n, hi)``, so tests can hand the port and the JAX package
 the same numbers.
+
+Each sampler runs in the span ``tri.sample.<name>`` (``sample_ptp`` in
+``tri.sample.ptp``), and ``run_finalize`` in ``tri.reduce``, of
+``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ..priors.companion import (
 from ..populations.ldc import round_index_comp
 from ..populations.stellar import stellar_relations, flux_relation
 from ..ops.lightcurve import eb_radius_ratios, eb_dilution, tp_dilution
+from ..utils import profiling
 
 F32 = torch.float32
 N_SAMPLES = 100  # top-k best-fit draws kept (reference ml.py:152)
@@ -188,6 +193,7 @@ def finalize(lnL, lnprior, gather_arrays, *, N: int):
     return lnZ, tuple(a[idx] for a in gather_arrays)
 
 
+@profiling.span("tri.reduce")
 def run_finalize(lnL, lnprior, gather: dict):
     """finalize on a dict of gather arrays; values stay on the device."""
     names = list(gather.keys())
@@ -200,6 +206,7 @@ def run_finalize(lnL, lnprior, gather: dict):
 # Planet-family sampler
 # ---------------------------------------------------------------------------
 
+@profiling.span("tri.sample.planet_target")
 def sample_planet_target(gen, P_lo, P_hi, M_s, R_s, *, N, flatpriors,
                          stratified=True):
     """Draws for TTP / NTP: a planet around a star with fixed properties
@@ -231,6 +238,7 @@ def _companion_qs(gen, u, M_s, qs_comp_in, n, use_molusc, twin=False):
     return qs_comp_in
 
 
+@profiling.span("tri.sample.ptp")
 def sample_ptp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
                *, N, flatpriors, use_molusc, cc_filt, stratified=True):
     """PTP: a planet around the target plus an unresolved bound companion
@@ -271,6 +279,7 @@ def _companion_ldc(masses_comp, radii_comp, teffs_comp, u1_tab, u2_tab):
     return u1_tab[i_logg, i_teff], u2_tab[i_logg, i_teff]
 
 
+@profiling.span("tri.sample.stp")
 def sample_stp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
                u1_tab, u2_tab, seps, cons, *, N, flatpriors, use_molusc,
                cc_filt, stratified=True):
@@ -327,6 +336,7 @@ def _host_is_bg_ok(row):
     return (row["loggs"] >= 3.5) & (row["teffs"] <= 10000.0)
 
 
+@profiling.span("tri.sample.background_planet")
 def sample_background_planet(gen, P_lo, P_hi, M_s, R_s, bg, seps, cons,
                              *, N, flatpriors, has_cc, host_is_bg,
                              stratified=True):
@@ -376,6 +386,7 @@ def _draw_lookalike(gen, pop, n):
     return idxs, row, _host_is_bg_ok(row)
 
 
+@profiling.span("tri.sample.ntp_unknown")
 def sample_ntp_unknown(gen, P_lo, P_hi, pop, *, N, flatpriors,
                        stratified=True):
     """NTP for a star of unknown properties: the host is drawn from the
@@ -612,6 +623,7 @@ def _teb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, n, twin):
         kk, ksec, g_pri, g_sec
 
 
+@profiling.span("tri.sample.teb")
 def sample_teb(gen, P_lo, P_hi, M_s, R_s, Teff, *, N, stratified=True,
                twin_n=0):
     """TEB / NEB: the target (or a nearby star) is an eclipsing binary
@@ -678,6 +690,7 @@ def _peb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps,
             qs_comp, fluxratios_comp, lnprior, kk, ksec, g_pri, g_sec)
 
 
+@profiling.span("tri.sample.peb")
 def sample_peb(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
                *, N, use_molusc, cc_filt, stratified=True, twin_n=0):
     """PEB: the target is an EB with an unresolved bound companion
@@ -763,6 +776,7 @@ def _seb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
             lnprior, kk, ksec, g_pri, g_sec)
 
 
+@profiling.span("tri.sample.seb")
 def sample_seb(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
                u1_tab, u2_tab, seps, cons, *, N, use_molusc, cc_filt,
                stratified=True, twin_n=0):
@@ -870,6 +884,7 @@ def _bg_eb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, n,
             lnprior, kk, ksec, g_pri, g_sec)
 
 
+@profiling.span("tri.sample.background_eb")
 def sample_background_eb(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons,
                          *, N, has_cc, host_is_bg, cc_filt="TESS",
                          stratified=True, twin_n=0):
@@ -939,6 +954,7 @@ def _neb_evolved_fields(gen, P_lo, P_hi, M_s, R_s, Teff, n, twin):
             g_pri, g_sec)
 
 
+@profiling.span("tri.sample.neb_evolved")
 def sample_neb_evolved(gen, P_lo, P_hi, M_s, R_s, Teff, *, N,
                        stratified=True, twin_n=0):
     """NEB for a subgiant (logg = 3.0 sets M_s on the host; reference
@@ -1016,6 +1032,7 @@ def _neb_unknown_fields(gen, P_lo, P_hi, pop, n, twin):
             ksec, g_pri, g_sec)
 
 
+@profiling.span("tri.sample.neb_unknown")
 def sample_neb_unknown(gen, P_lo, P_hi, pop, *, N, stratified=True,
                        twin_n=0):
     """NEB for a star of unknown properties, its host drawn from the
