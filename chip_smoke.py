@@ -33,7 +33,12 @@ Drives the port's main path once at full size and checks it:
      beyond zmax, which every v2 kernel drops at the 32-point groups it
      skips; the every-point plain version's distance is printed); prints
      the orbit v2, tab and exact kernels'
-     registers, local memory and resident warps per SM, and for the v3
+     registers, local memory and resident warps per SM (the instance the
+     shape runs: from chi2_core.V2_WINDOW_MIN_T exposures on, for the
+     exact kernel V2_EXACT_WINDOW_MIN_T, the windowed one, which solves
+     only the 32-point groups of a draw holding a point of its transit
+     window), for the windowed tab and exact kernels the share of (draw,
+     group) pairs they solved, and for the v3
      orbit kernels, which skip the solve outside each draw's transit
      window, both bounds (window_bound,
      a solve inside the windows only, and a solve at every point), the
@@ -74,7 +79,8 @@ Drives the port's main path once at full size and checks it:
      exposures, 4's planet) under schedules 2 and 3 on one seed: only the
      schedule's tab kernel launched, once per row; per-row lnZ within
      1e-2 nats on the rows within 50 nats of the winner, the same -inf
-     rows; prints both schedules' first and warm walls;
+     rows; prints both schedules' first and warm walls and the share of
+     (draw, group) pairs the tab kernel solved (the warm call traced);
   6. times three warm calc_probs calls with different seeds (v2);
   7. runs the four dormant nearby-star scenarios (lnZ_NTP_unknown and
      lnZ_NEB_unknown on the TRILEGAL lookalikes of a Tmag 13.2 star,
@@ -173,6 +179,10 @@ FLOPS_EXACT_DRAW = 54 * (FLOPS_DEFICIT + 2) + 54 * 18 * 2 + 14
 FLOPS_WINDOW_DRAW = 40 + 10 + 6 + 7 * 7 + 6 + 4 * 10 + 12
 # device sleep queued before each timed call (~1 ms at the H100's clock)
 LEAD_CYCLES = 2_000_000
+# phase 3's shapes, shape i on draws of seed i: name, exposures, nsamples
+# and the curve's half window [d]
+KERNEL_SHAPES = (("slice", 100, NSAMPLES, 0.15), ("long", 8055, NSAMPLES, 0.3),
+                 ("full", 20099, NSAMPLES, 1.5), ("ns1", 100, 1, 0.15))
 # phase 7: the nearby star whose lookalikes the unknown-host rows draw, and
 # the subgiant radius of the evolved rows
 TMAG_LOOKALIKE = 13.2
@@ -645,10 +655,8 @@ def phase_kernel(torch, chi2_core):
         return -(-draw_chunk(n_t, ns) // tile) * tile
 
     c_main = orbit_chunk(N_DRAWS)
-    shapes = [("slice", 100, NSAMPLES, 0.15), ("long", 8055, NSAMPLES, 0.3),
-              ("full", 20099, NSAMPLES, 1.5), ("ns1", 100, 1, 0.15)]
     out = {}
-    for i, (name, n_t, ns, window) in enumerate(shapes):
+    for i, (name, n_t, ns, window) in enumerate(KERNEL_SHAPES):
         C2 = chunk(n_t, ns, chi2_core.DRAW_TILE)
         C3 = chunk(n_t, ns, chi2_core.DRAW_LANES)
         args, offs, wgts = _chunk_inputs(torch, chi2_core, C2, n_t, ns,
@@ -741,7 +749,7 @@ def _orbit_shape(torch, chi2_core, name, n_t, ns, window, seed, C_cmp,
                      f"{every[0]:.4f} ms)")
             info = {}
         else:
-            info = chi2_core.v2_kernel_info("copy", ns, len(offs))
+            info = chi2_core.v2_kernel_info("copy", ns, len(offs), n_t)
             extra = f"; {_info_text(info)}"
         print(f"phase 3: {name} {kname} n_t={n_t} nodes={len(offs)}: at "
               f"C={C_cmp} lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff "
@@ -851,6 +859,10 @@ def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
     yard_ms = _median_ms(torch, lambda: yardstick(main[0], main[1], main[4]))
     every = tab_bound(chi2_core, main[0], main[1], main[4], kw["offs"], ns,
                       counts)
+    solved = None
+    if not v3 and n_t >= (chi2_core.V2_EXACT_WINDOW_MIN_T if stage == "exact"
+                          else chi2_core.V2_WINDOW_MIN_T):
+        solved = window_solved(chi2_core, lambda: fn(*main_args, **kw))
     if v3:
         bound_ms, bound_by, skipped = window_bound(
             chi2_core, main[0], main[1], main[4], kw["offs"], ns, counts)
@@ -864,12 +876,15 @@ def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
     elif stage == "exact":
         bound_ms, bound_by, _ = exact_bound(chi2_core, main[0], main[1],
                                             main[4], kw["offs"], ns, counts)
-        info = chi2_core.exact_kernel_info(ns, S)
+        info = chi2_core.exact_kernel_info(ns, S, n_t)
         extra = ""
     else:
         bound_ms, bound_by, _ = every
-        info = chi2_core.tab_kernel_info(ns, S)
+        info = chi2_core.tab_kernel_info(ns, S, n_t)
         extra = ""
+    if solved is not None:
+        extra += (f" (windowed: {solved:.4f} of (draw, 32-point group) "
+                  f"pairs solved)")
     print(f"phase 3: {name} {kname} n_t={n_t} nodes={S}: at C={C_cmp} vs "
           f"plain lnL diff p99 {p99:.3g} max {dmax:.3g}, lnZ diff "
           f"{dz:.3g}{vs_every}; "
@@ -886,7 +901,24 @@ def _tab_shape(torch, chi2_core, name, kname, ns, cmp, main, kw, counts,
         out.update(bound_ms_every_point=every[0], skipped=skipped,
                    skipped_by_warps=1.0 - _share(counts, "warp"),
                    tab_ms=v2_tab["ms"])
+    if solved is not None:
+        out["solved"] = solved
     return out
+
+
+def window_solved(chi2_core, launch):
+    """The share of (draw, 32-point group) pairs that a windowed v2 launch
+    (``launch()``, n_t >= chi2_core.V2_WINDOW_MIN_T) solved, from the
+    tracer's window counters (they count while the tracer is on)."""
+    prof = chi2_core.profiling
+    before = prof.counters()
+    with prof.tracing("host"):
+        launch()
+    after = prof.counters()
+    walked, solved = (after.get(n, 0) - before.get(n, 0)
+                      for n in chi2_core.WINDOW_COUNTERS)
+    check(walked > 0, "the windowed v2 kernel counted no groups")
+    return solved / walked
 
 
 def phase_kernel_targets(torch, chi2_core, single):
@@ -1269,7 +1301,9 @@ def phase_long(chi2_core, t):
     window): each launches only its kernel, once per row; per-row lnZ
     within 1e-2 nats on the rows within LONG_NEAR_NATS of the winner and
     the same -inf rows. Prints each schedule's first and warm wall (host
-    clock, the call ends in a device-to-host copy). Returns the walls."""
+    clock, the call ends in a device-to-host copy; the warm call with the
+    tracer on) and the share of (draw, group) pairs the windowed tab
+    kernel solved in the warm call. Returns the walls."""
     from triceratops_tpu_torch.ops import lightcurve
 
     rng = np.random.default_rng(LONG_SEED)
@@ -1281,12 +1315,13 @@ def phase_long(chi2_core, t):
         lightcurve.CHI2_SCHEDULE = sched
         try:
             calls = []
-            for _ in range(2):
+            for mode in ("off", "host"):
                 _reset(chi2_core)
                 t0 = time.perf_counter()
-                t.calc_probs(time_, flux, TOI465_SIGMA, P_orb=TOI465_P,
-                             N=N_DRAWS, nsamples=NSAMPLES, verbose=0,
-                             key=LONG_SEED, device="cuda")
+                with chi2_core.profiling.tracing(mode):
+                    t.calc_probs(time_, flux, TOI465_SIGMA, P_orb=TOI465_P,
+                                 N=N_DRAWS, nsamples=NSAMPLES, verbose=0,
+                                 key=LONG_SEED, device="cuda")
                 calls.append(time.perf_counter() - t0)
                 counts[sched] = _counts(chi2_core)
                 check(_only(counts[sched], counter)
@@ -1296,6 +1331,10 @@ def phase_long(chi2_core, t):
         finally:
             lightcurve.CHI2_SCHEDULE = "2"
         lnZ[sched], walls[sched] = t.lnZ.copy(), calls
+        if sched == "2":
+            c = chi2_core.profiling.counters()
+            walked, solved = (c.get(n, 0) for n in chi2_core.WINDOW_COUNTERS)
+            check(walked > 0, "phase long: the tab kernel ran unwindowed")
     a, b = lnZ["2"], lnZ["3"]
     names = t.probs["scenario"].values
     check(np.array_equal(np.isneginf(a), np.isneginf(b)),
@@ -1305,7 +1344,9 @@ def phase_long(chi2_core, t):
     print(f"phase long: calc_probs N={N_DRAWS} nsamples={NSAMPLES} on "
           f"{LONG_N_T} points (|t| < {LONG_WINDOW} d), {len(a)} rows: "
           f"schedule 2 (tab kernel) {walls['2'][0]:.3f} s first, "
-          f"{walls['2'][1]:.4f} s warm; schedule 3 (v3 tab kernel) "
+          f"{walls['2'][1]:.4f} s warm (tracer on: {solved / walked:.4f} of "
+          f"{walked} (draw, 32-point group) pairs solved); schedule 3 (v3 "
+          f"tab kernel) "
           f"{walls['3'][0]:.3f} s first, {walls['3'][1]:.4f} s warm; "
           f"launches {counts['2']} / {counts['3']}; {int(near.sum())} rows "
           f"within {LONG_NEAR_NATS} nats of the winner "

@@ -406,6 +406,25 @@ def _tab_args(a, ns, to=torch.as_tensor):
             offs, wgts)
 
 
+def _window_delta(before):
+    """The window counters' growth since ``before`` (a counters() copy)."""
+    after = profiling.counters()
+    return {n: after.get(n, 0) - before.get(n, 0)
+            for n in chi2_core.WINDOW_COUNTERS}
+
+
+def _long_tab_args(order, N=8192, seed=9):
+    """``_tab_args`` (ns = 20) of ``_tab_inputs`` on an 8,055-point curve in
+    |t| < 0.3 d, sorted by time or shuffled (time and obs together), as
+    CUDA tensors."""
+    a = _tab_inputs(N=N, n_t=8055, seed=seed)
+    a[0] = f32(a[0] * 2.0)
+    if order == "shuffled":
+        perm = np.random.default_rng(seed).permutation(a[0].size)
+        a[0], a[1] = a[0][perm], a[1][perm]
+    return _tab_args(a, 20, lambda x: torch.as_tensor(x, device="cuda"))
+
+
 class TestTabKernel:
     @pytest.mark.parametrize("n_t", [40, 137])
     @pytest.mark.parametrize("ns", [4, 1])
@@ -614,15 +633,13 @@ class TestTabKernel:
         for x, y in zip(got, want):
             assert float((x.cpu() - y).abs().max()) < 3e-6
 
-    @pytest.mark.cuda
-    def test_targets_in_one_launch_on_card(self):
-        """On the card: one launch over B = 4 targets (each its own curve)
-        equals four one-target launches draw for draw."""
-        if not torch.cuda.is_available():
-            pytest.skip("needs a CUDA card and nvcc")
+    @staticmethod
+    def _targets_in_one_launch(n_t):
+        """One tab launch over B = 4 targets (each its own curve of n_t
+        points) against four one-target launches, draw for draw."""
         per = []
         for b in range(4):
-            a = _tab_inputs(N=4096, n_t=100, seed=60 + b)
+            a = _tab_inputs(N=4096, n_t=n_t, seed=60 + b)
             a[0] = f32(a[0] * (1.0 + 0.2 * b))
             per.append(_tab_args(
                 a, 20, lambda x: torch.as_tensor(x, device="cuda")))
@@ -636,6 +653,90 @@ class TestTabKernel:
         singles = torch.cat([chi2_core.chi2_from_orbit_tab(*p[0], **kw)
                              for p in per])
         torch.testing.assert_close(kern, singles, rtol=0, atol=0)
+
+    @pytest.mark.cuda
+    def test_targets_in_one_launch_on_card(self):
+        """On the card: one launch over B = 4 targets (each its own curve)
+        equals four one-target launches draw for draw."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        self._targets_in_one_launch(100)
+
+    @pytest.mark.cuda
+    def test_targets_in_one_windowed_launch_on_card(self):
+        """The same at 512 points a curve, where the windowed instance runs
+        (each draw's window on its own target's time row)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        assert 512 >= chi2_core.V2_WINDOW_MIN_T
+        self._targets_in_one_launch(512)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("order", ["sorted", "shuffled"])
+    def test_windowed_kernel_matches_plain_on_card(self, order):
+        """On the card, at n_t = 8055 (the windowed instance), on a sorted
+        and on a shuffled curve: the tab kernel against its plain version
+        under the v2 skip rule (``group = V2_GROUP``) on the same CUDA
+        tensors (C = 8192, k over all eight k-segments), with the lnL-scale
+        gates on the draws within 50 of the best lnL and the relative gate
+        (p99 < 1e-3, max < 2e-2) on all draws."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        args, offs, wgts = _long_tab_args(order)
+        assert args[0].shape[0] >= chi2_core.V2_WINDOW_MIN_T
+        before = _counts()
+        kern = chi2_core.chi2_from_orbit_tab(*args, offs=offs, wgts=wgts,
+                                             ns=20)
+        assert _counts() == _plus(before, "launch.chi2_from_orbit_tab")
+        plain = chi2_core.chi2_from_orbit_tab_plain(
+            *args, offs=offs, wgts=wgts, ns=20, group=chi2_core.V2_GROUP)
+        inv = 1.0 / (2 * 5e-4 ** 2)
+        lnL_p = (-plain.double() * inv).cpu().numpy()
+        d = ((kern - plain).abs().double() * inv).cpu().numpy()
+        near = lnL_p > lnL_p.max() - 50.0
+        assert np.quantile(d[near], 0.99) < 0.05 and d[near].max() < 1.0
+        rel = d / (np.abs(lnL_p) + 1.0)
+        assert np.quantile(rel, 0.99) < 1e-3 and rel.max() < 2e-2
+
+    @pytest.mark.cuda
+    def test_window_counters_on_card(self):
+        """On the card, with the tracer on: a windowed launch (n_t = 8055,
+        C = 4096) adds C x ceil(n_t / 32) to ``window.groups`` and to
+        ``window.groups_solved`` the groups of ``window_groups`` on the same
+        draws, up to those whose deciding exposure lies within 1e-5 rad of
+        the window's edge (the kernel and torch round the window apart);
+        a launch below ``V2_WINDOW_MIN_T`` (n_t = 64) adds no window
+        counter, and with the tracer off neither does a windowed one."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card and nvcc")
+        args, offs, wgts = _long_tab_args("sorted", N=4096, seed=31)
+        time, P, aR, inc, e, w, k, u1, u2 = args[:9]
+        C, n_t = P.shape[0], time.shape[0]
+        kw = dict(offs=offs, wgts=wgts, ns=20)
+        before = profiling.counters()
+        with profiling.tracing("host"):
+            chi2_core.chi2_from_orbit_tab(*args, **kw)
+            got = _window_delta(before)
+        segs = tfc.cheb_deficit_coeffs_tab(k, u1, u2)[3:]
+        mid, half = chi2_core.transit_window(P, aR, inc, e, w,
+                                             segs[1] + 1.0 / segs[4], offs)
+        lo, hi = (int(chi2_core.window_groups(time, P, mid, half + d).sum())
+                  for d in (-1e-5, 1e-5))
+        assert got["window.groups"] == C * -(-n_t // chi2_core.V2_GROUP)
+        assert lo <= got["window.groups_solved"] <= hi, (got, lo, hi)
+        assert got["window.groups_solved"] < 0.5 * got["window.groups"]
+
+        none = dict.fromkeys(chi2_core.WINDOW_COUNTERS, 0)
+        short, _, _ = _tab_args(_tab_inputs(N=4096, n_t=64, seed=32), 20,
+                                lambda x: torch.as_tensor(x, device="cuda"))
+        assert short[0].shape[0] < chi2_core.V2_WINDOW_MIN_T
+        before = profiling.counters()
+        with profiling.tracing("host"):
+            chi2_core.chi2_from_orbit_tab(*short, **kw)
+            assert _window_delta(before) == none
+        before = profiling.counters()
+        chi2_core.chi2_from_orbit_tab(*args, **kw)
+        assert _window_delta(before) == none
 
 
 class TestV3TabKernel:

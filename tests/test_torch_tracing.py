@@ -198,6 +198,29 @@ def test_cap_drops_and_counts(monkeypatch):
     assert profiling.counters()["span.dropped"] == 2
 
 
+def test_device_counters_fold_when_read():
+    """An array of ``device_counters`` (on the CPU here; kernels add to it
+    on the card) is added to its names' counters when ``counters()`` reads
+    them, then zeroed; an array that holds nothing adds no name;
+    ``reset()`` zeroes it; ``enabled()`` follows the tracer's mode."""
+    assert not profiling.enabled()
+    with profiling.tracing("host"):
+        assert profiling.enabled()
+    names = ("test.a", "test.b")
+    arr = profiling.device_counters(names, "cpu")
+    assert profiling.device_counters(names, "cpu") is arr
+    assert arr.dtype == torch.int64 and arr.tolist() == [0, 0]
+    assert "test.a" not in profiling.counters()
+    arr += torch.tensor([3, 0])
+    assert profiling.counters() == {"test.a": 3, "test.b": 0}
+    assert arr.tolist() == [0, 0]
+    arr += torch.tensor([2, 5])
+    assert profiling.counters() == {"test.a": 5, "test.b": 5}
+    arr += 1
+    profiling.reset()
+    assert arr.tolist() == [0, 0] and profiling.counters() == {}
+
+
 @pytest.mark.parametrize("misuse", ["reset_inside_span", "unknown_mode"])
 def test_misuse_raises(misuse):
     if misuse == "unknown_mode":

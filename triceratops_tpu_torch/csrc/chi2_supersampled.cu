@@ -61,8 +61,9 @@
 // square root and division, and two atan2f) and a 54 x 18 DCT, about what
 // the point loop of a 100-point curve costs: still operations. On a folded
 // curve most exposures of a long curve cannot be in transit for a given
-// draw; chi2_kernel_v3 finds them from ~160 operations per draw and ~8 per
-// point, before any solve.
+// draw; both bodies find them from ~160 operations per draw and ~8 per
+// point, before any solve (chi2_kernel_v2 on curves of V2_WINDOW_MIN_T
+// points or more, V2_EXACT_WINDOW_MIN_T with the exact stage).
 //
 // What the design does about it:
 //   * point_deficit, the per-point work (sqrt map, recurrence with its
@@ -85,7 +86,21 @@
 //     coalesced and the orbit source keeps all lanes busy on the solve; a
 //     32-point group in which no lane is in front with z < zmax at any
 //     node skips the square roots and the recurrence (__any_sync); the
-//     per-draw sum is a __shfl_xor_sync butterfly. TabStage's block copies
+//     per-draw sum is a __shfl_xor_sync butterfly. On a curve of at least
+//     Stage::kWindowMinT points (V2_WINDOW_MIN_T, V2_EXACT_WINDOW_MIN_T
+//     with the exact stage) the orbit instances take the windowed body
+//     (Win), in blocks of V2_WIN_WARPS = 32 warps, one per SM (the tab
+//     stage's table once per SM, the rest of shared memory L1 for the
+//     curve): the warp computes its draw's transit window (transit_window,
+//     as v3, its seven eccentric anomalies on seven lanes at once), each
+//     lane tests its exposure against it and a group in
+//     which no lane is inside skips the Kepler solve and the z^2 model as
+//     well, adding obs^2 alone as a group out of transit does. The window
+//     holds every exposure that can be in transit, so the output is the
+//     unwindowed body's bit for bit; a warp serves one draw, so it solves
+//     its draw's own window, not a union. On a sorted curve most groups
+//     of a long curve skip the solve; on a shuffled one nearly every group
+//     solves, at ~8 operations a point more. TabStage's block copies
 //     the (152, 162) coefficient table (98,496 bytes) into shared memory
 //     once, with one TMA bulk copy completed on an mbarrier (the table
 //     allows two copies per SM); per draw the warp computes the tabulated
@@ -186,6 +201,24 @@ constexpr int V3_SLOT = 3 * M_CHEB * V3_PITCH + 2;
 // output (the 54, then zsplit, zmid, invA, invB1, invB2)
 constexpr int V2_WARPS = 16;
 constexpr int V2_MIN_BLOCKS = 2;
+// chi2_kernel_v2: the fewest exposures at which an orbit launch takes the
+// windowed instance (Win: the per-draw transit window, then the Kepler
+// solve only in the 32-point groups it holds), with the copy and tab
+// stages and with the exact one, and that instance's warps per block. On
+// an H100, on evenly spaced points in |t| < 0.15 or 0.4 d, the windowed
+// tab and copy instances are slower at 32 and 64 points (every group holds
+// a window point) and faster from 100 on: by 4 % at 100 points in 0.15 d,
+// by 13 % or more from 256 on. 100-point calc_probs calls, which the host
+// paces, read no gain from it, so the windowed instance starts at 256.
+// The exact instance, whose stage is most of a draw's work on a short
+// curve, wins from 512 on. chi2_core.py keeps the same values. The
+// windowed blocks take a whole SM (one copy of the tab stage's table per
+// SM), which leaves the rest of the SM's shared memory to L1, where a long
+// curve's exposure times and observations stay for the groups that read
+// them without a solve
+constexpr int V2_WINDOW_MIN_T = 256;
+constexpr int V2_EXACT_WINDOW_MIN_T = 512;
+constexpr int V2_WIN_WARPS = 32;
 constexpr int V2_THREADS = V2_WARPS * 32;
 constexpr int COEF_SLOT = 64;
 constexpr int OUT_LANES = 3 * M_CHEB / 2;
@@ -362,10 +395,11 @@ __device__ __forceinline__ float ecc_anomaly(float f, float sm, float sp) {
 }
 
 // The mean anomaly swept going forward from eccentric anomaly E1 to E2
-// (the E arc taken in [0, 2pi)).
-__device__ __forceinline__ float mean_arc(float E1, float E2, float e) {
+// (the E arc taken in [0, 2pi)); s1, s2 are their sines.
+__device__ __forceinline__ float mean_arc(float E1, float s1, float E2,
+                                          float s2, float e) {
   const float dE = E2 - E1;
-  return dE - TWO_PI_F * floorf(dE * INV_TWO_PI_F) - e * (sinf(E2) - sinf(E1));
+  return dE - TWO_PI_F * floorf(dE * INV_TWO_PI_F) - e * (s2 - s1);
 }
 
 // The draw's transit window in mean anomaly about its transit (n t = 0),
@@ -383,10 +417,15 @@ __device__ __forceinline__ float mean_arc(float E1, float E2, float e) {
 // near u = 3pi/2 needs the mean-anomaly gap between u = pi (or 2pi) and
 // that branch within the spread: then, and where no th exists
 // (zeff >= rmin), the window is the whole orbit; where even u = pi/2
-// keeps z >= zeff it is empty.
+// keeps z >= zeff it is empty. The seven eccentric anomalies (and their
+// sines) are most of the work: with Warp, the whole warp computes one
+// draw's window, lane j < 7 the j-th anomaly, shared by shuffles; without,
+// each thread computes its own draw's (v3: the lanes hold 8 draws).
+template <bool Warp>
 __device__ __forceinline__ Window transit_window(float e, float aR, float n,
                                                  float S, float C, float w,
-                                                 float zmax2, float dmax) {
+                                                 float zmax2, float dmax,
+                                                 int lane) {
   const float ome = 1.0f - e, ope = 1.0f + e;
   const float rmin = aR * ome, rmax = aR * ope;
   const float V = aR * n * sqrtf(ope / ome);
@@ -404,15 +443,33 @@ __device__ __forceinline__ Window transit_window(float e, float aR, float n,
   const float spread = n * dmax + WIN_PAD;
   const float sm = sqrtf(ome), sp = sqrtf(ope);
   const float fc = HALF_PI_F - w;
-  const float Ec = ecc_anomaly(fc, sm, sp);
-  const float a = mean_arc(ecc_anomaly(fc - th, sm, sp), Ec, e);
-  const float b = mean_arc(Ec, ecc_anomaly(fc + th, sm, sp), e);
   const float fs = THREE_HALF_PI_F - w;
-  const float gap =
-      fminf(mean_arc(ecc_anomaly(PI_F - w, sm, sp),
-                     ecc_anomaly(fs - th, sm, sp), e),
-            mean_arc(ecc_anomaly(fs + th, sm, sp), ecc_anomaly(-w, sm, sp),
-                     e));
+  // the true anomalies of the arc's centre and ends, and of the ends of
+  // the arcs from u = pi to the branch behind the star and from it to 2pi
+  const float f[7] = {fc, fc - th, fc + th, PI_F - w, fs - th, fs + th, -w};
+  float E[7], sE[7];
+  if constexpr (Warp) {
+    float fl = f[0];
+#pragma unroll
+    for (int j = 1; j < 7; ++j) fl = lane == j ? f[j] : fl;
+    const float El = ecc_anomaly(fl, sm, sp);
+    const float sl = sinf(El);
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      E[j] = __shfl_sync(0xffffffffu, El, j);
+      sE[j] = __shfl_sync(0xffffffffu, sl, j);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      E[j] = ecc_anomaly(f[j], sm, sp);
+      sE[j] = sinf(E[j]);
+    }
+  }
+  const float a = mean_arc(E[1], sE[1], E[0], sE[0], e);
+  const float b = mean_arc(E[0], sE[0], E[2], sE[2], e);
+  const float gap = fminf(mean_arc(E[3], sE[3], E[4], sE[4], e),
+                          mean_arc(E[5], sE[5], E[6], sE[6], e));
   if (!(gap > spread) || !(a + b + 2.0f * spread < TWO_PI_F))
     return {0.0f, WIN_WHOLE};
   return {0.5f * (b - a), 0.5f * (a + b) + spread};
@@ -474,11 +531,13 @@ struct OrbitSource {
   }
 
   // draw c's transit window (d = draw(c)) for zmax^2 and nodes within
-  // dmax of the exposure centre
+  // dmax of the exposure centre, computed by the thread or (Warp) by the
+  // whole warp, whose lanes all hold draw c
+  template <bool Warp = false>
   __device__ __forceinline__ Window window(const Draw& d, int c, float zmax2,
-                                           float dmax) const {
-    return transit_window(d.e, d.aR, d.n, d.S, d.C, __ldg(w + c), zmax2,
-                          dmax);
+                                           float dmax, int lane = 0) const {
+    return transit_window<Warp>(d.e, d.aR, d.n, d.S, d.C, __ldg(w + c),
+                                zmax2, dmax, lane);
   }
 
   __device__ __forceinline__ float time_at(int ti) const {
@@ -588,17 +647,35 @@ __device__ __forceinline__ float point_deficit(const float (&z2)[S],
 
 // The v2 schedule's sum for one draw, run by its warp: lanes stride the
 // time axis, a 32-point group with no lane in transit skips the deficit,
-// and a butterfly leaves the draw's sum in every lane.
-template <class Src, int S, class Coeffs>
+// and a butterfly leaves the draw's sum in every lane. Win: each lane
+// first tests its exposure against the draw's transit window (win), and a
+// group with no lane inside it skips the Kepler solve as well and adds
+// obs^2 alone, as a group with no lane in transit does (the window holds
+// every exposure that can be in transit, so the sum is the same bit for
+// bit); solved counts the groups that ran the solve.
+template <bool Win, class Src, int S, class Coeffs>
 __device__ __forceinline__ float draw_chi2(const Src& src,
                                            const typename Src::Draw& d,
+                                           const Window& win,
                                            const Coeffs& k, float gc,
                                            const float* obs, int n_t,
-                                           const Nodes& nodes, int lane) {
+                                           const Nodes& nodes, int lane,
+                                           unsigned& solved) {
   float acc = 0.0f;
   for (int t0 = 0; t0 < n_t; t0 += 32) {
     const int t = t0 + lane;
     const bool inb = t < n_t;
+    if constexpr (Win) {
+      const bool near = inb && win.contains(d.n, src.time_at(t));
+      if (!__any_sync(0xffffffffu, near)) {
+        if (inb) {
+          const float ob = __ldg(obs + t);
+          acc += ob * ob;
+        }
+        continue;
+      }
+      ++solved;
+    }
     float z2[S];
     float fr = 0.0f, ob = 0.0f;
     bool active = false;
@@ -899,6 +976,7 @@ __device__ __forceinline__ float occult_deficit(float p, float z, float u1,
 struct CopyStage {
   Chi2Args p;
   static constexpr int kScratch = 0;
+  static constexpr int kWindowMinT = V2_WINDOW_MIN_T;
 
   __host__ __device__ int table_floats() const { return 0; }
   __device__ __forceinline__ void begin(float*) const {}
@@ -935,6 +1013,7 @@ struct TabStage {
   KudArgs p;   // p.table: the (n_rows, TAB_COLS) table, 16-byte aligned
   TabSegs ts;
   static constexpr int kScratch = 0;
+  static constexpr int kWindowMinT = V2_WINDOW_MIN_T;
 
   __host__ __device__ int table_floats() const {
     return tab_floats(ts.n_rows);
@@ -966,6 +1045,7 @@ struct ExactStage {
   KudArgs p;   // p.table: dct_T (M_CHEB, M_CHEB)
   ExactConsts ec;
   static constexpr int kScratch = COEF_SLOT;   // the 54 node deficits
+  static constexpr int kWindowMinT = V2_EXACT_WINDOW_MIN_T;
 
   __host__ __device__ int table_floats() const { return EXACT_TABLE; }
   // dct_T, then the S-nodes
@@ -1027,18 +1107,31 @@ __host__ __device__ constexpr int v2_warp_floats() {
 }
 
 template <class Stage>
-__host__ __device__ constexpr int v2_smem_bytes(int table_floats) {
-  return 4 * (table_floats + V2_WARPS * v2_warp_floats<Stage>());
+__host__ __device__ constexpr int v2_smem_bytes(int table_floats,
+                                                int warps = V2_WARPS) {
+  return 4 * (table_floats + warps * v2_warp_floats<Stage>());
+}
+
+// Warps per block of chi2_kernel_v2's instance, windowed or not.
+template <bool Win>
+__host__ __device__ constexpr int v2_warps() {
+  return Win ? V2_WIN_WARPS : V2_WARPS;
 }
 
 // The v2 schedule in persistent blocks, each staging its stage's table
 // once; warp w of the grid takes draws w, w + (warps in the grid), ...: the
 // stage fills the warp's slot, then draw_chi2 runs the point loop on it.
-// At most 64 registers a thread at two blocks per SM.
-template <class Src, int S, class Stage>
-__global__ void __launch_bounds__(V2_THREADS, V2_MIN_BLOCKS)
+// Win (orbit sources, launches of at least Stage::kWindowMinT points): per
+// draw the orbit source's transit window (Src::window), and draw_chi2
+// solves only the 32-point groups it holds; win_counts, when not null,
+// gets the warp's (draw, group) pairs walked and solved, one atomic each
+// at exit. At most 64 registers a thread: two blocks of V2_WARPS warps per
+// SM, or one of V2_WIN_WARPS (Win).
+template <class Src, int S, class Stage, bool Win>
+__global__ void __launch_bounds__(v2_warps<Win>() * 32,
+                                  Win ? 1 : V2_MIN_BLOCKS)
 chi2_kernel_v2(Src src_all, const __grid_constant__ Stage st, int C,
-               int n_t, Nodes nodes) {
+               int n_t, Nodes nodes, unsigned long long* win_counts) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -1046,19 +1139,34 @@ chi2_kernel_v2(Src src_all, const __grid_constant__ Stage st, int C,
       smem + st.table_floats() + warp * v2_warp_floats<Stage>();
   float* slot = scratch + Stage::kScratch;
   st.begin(smem);
+  float dmax = 0.0f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) dmax = fmaxf(dmax, fabsf(nodes.off[s]));
+  unsigned walked = 0, solved = 0;
 
-  for (int c = blockIdx.x * V2_WARPS + warp; c < C;
-       c += gridDim.x * V2_WARPS) {
+  constexpr int kWarps = v2_warps<Win>();
+  for (int c = blockIdx.x * kWarps + warp; c < C; c += gridDim.x * kWarps) {
     const int64_t row = (int64_t)(c / st.Cb()) * n_t;   // the draw's target
     const Src src = src_all.target(row);
     const SharedCoeffs k = st.fill(smem, scratch, slot, c, lane);
     __syncwarp();
     const float gc = __ldg(st.g() + c);
     const typename Src::Draw d = src.draw(c);
-    const float acc =
-        draw_chi2<Src, S>(src, d, k, gc, st.obs() + row, n_t, nodes, lane);
+    Window win{0.0f, WIN_WHOLE};
+    if constexpr (Win) {
+      win = src.template window<true>(d, c, k.zmax2, dmax, lane);
+      walked += (n_t + 31) / 32;
+    }
+    const float acc = draw_chi2<Win, Src, S>(
+        src, d, win, k, gc, st.obs() + row, n_t, nodes, lane, solved);
     if (lane == 0) st.out()[c] = acc;
     __syncwarp();   // every lane is done with the slot
+  }
+  if constexpr (Win) {
+    if (win_counts && lane == 0) {
+      atomicAdd(win_counts, (unsigned long long)walked);
+      atomicAdd(win_counts + 1, (unsigned long long)solved);
+    }
   }
 }
 
@@ -1428,33 +1536,57 @@ bool tab_segs_ok(const TabSegs& ts) {
   return true;
 }
 
-// Blocks of a persistent v2 launch over C draws: as many as fit on the
-// device at once, no more than the draws' warps.
-int v2_grid(const Setup& su, int C) {
-  return std::min(su.sms * su.blocks, (C + V2_WARPS - 1) / V2_WARPS);
+// Blocks of a persistent v2 launch over C draws in blocks of `warps`
+// warps: as many as fit on the device at once, no more than the draws'
+// warps.
+int v2_grid(const Setup& su, int C, int warps = V2_WARPS) {
+  return std::min(su.sms * su.blocks, (C + warps - 1) / warps);
+}
+
+// Whether a v2 launch of Src and Stage over n_t exposures takes the
+// windowed instance.
+template <class Src, class Stage>
+bool v2_windowed(int n_t) {
+  return Src::kWindow && n_t >= Stage::kWindowMinT;
+}
+
+template <class Src, int S, class Stage, bool Win>
+int launch_v2_nodes(const Src& src, const Stage& st, int C, int n_t,
+                    const Nodes& nodes, unsigned long long* win_counts,
+                    cudaStream_t stream) {
+  constexpr int kWarps = v2_warps<Win>();
+  const int smem = v2_smem_bytes<Stage>(st.table_floats(), kWarps);
+  const void* fn = (const void*)chi2_kernel_v2<Src, S, Stage, Win>;
+  const Setup* su = nullptr;
+  const int err = kernel_setup(fn, 32 * kWarps, smem, &su);
+  if (err) return err;
+  chi2_kernel_v2<Src, S, Stage, Win>
+      <<<v2_grid(*su, C, kWarps), 32 * kWarps, smem, stream>>>(
+          src, st, C, n_t, nodes, win_counts);
+  return (int)cudaGetLastError();
 }
 
 // Launch chi2_kernel_v2 over Src and Stage with S = n_nodes (1..4; the
-// projected orbit source has one node only). Returns a CUDA error code, 0
-// on success.
+// projected orbit source has one node only), windowed where v2_windowed
+// says so (win_counts: its counters, or null). Returns a CUDA error code,
+// 0 on success.
 template <class Src, class Stage>
 int launch_v2(const Src& src, const Stage& st, int C, int n_t,
               const float* offs, const float* wgts, int n_nodes,
-              void* stream) {
+              unsigned long long* win_counts, void* stream) {
   const int Cb = st.Cb();
   if (C <= 0 || Cb <= 0 || C % Cb) return (int)cudaErrorInvalidValue;
   const Nodes nodes = make_nodes(offs, wgts, n_nodes);
-  const int smem = v2_smem_bytes<Stage>(st.table_floats());
+  const bool win = v2_windowed<Src, Stage>(n_t);
   return with_nodes<Src>(n_nodes, [&](auto s) {
     constexpr int S = decltype(s)::value;
-    const void* fn = (const void*)chi2_kernel_v2<Src, S, Stage>;
-    const Setup* su = nullptr;
-    const int err = kernel_setup(fn, V2_THREADS, smem, &su);
-    if (err) return err;
-    chi2_kernel_v2<Src, S, Stage>
-        <<<v2_grid(*su, C), V2_THREADS, smem, (cudaStream_t)stream>>>(
-            src, st, C, n_t, nodes);
-    return (int)cudaGetLastError();
+    if constexpr (Src::kWindow) {
+      if (win)
+        return launch_v2_nodes<Src, S, Stage, true>(
+            src, st, C, n_t, nodes, win_counts, (cudaStream_t)stream);
+    }
+    return launch_v2_nodes<Src, S, Stage, false>(
+        src, st, C, n_t, nodes, nullptr, (cudaStream_t)stream);
   });
 }
 
@@ -1520,7 +1652,8 @@ int launch_orbit(const float* time, const float* P, const float* aR,
                  const float* inc, const float* e, const float* w,
                  const Stage& st, int table_floats, int C, int n_t,
                  const float* offs, const float* wgts, int n_nodes,
-                 int projected, void* stream) {
+                 int projected, unsigned long long* win_counts,
+                 void* stream) {
   if constexpr (V3) {
     if (projected)
       return launch_v3(OrbitSource<true>{time, P, aR, inc, e, w}, st,
@@ -1530,16 +1663,16 @@ int launch_orbit(const float* time, const float* P, const float* aR,
   } else {
     if (projected)
       return launch_v2(OrbitSource<true>{time, P, aR, inc, e, w}, st, C, n_t,
-                       offs, wgts, n_nodes, stream);
+                       offs, wgts, n_nodes, win_counts, stream);
     return launch_v2(OrbitSource<false>{time, P, aR, inc, e, w}, st, C, n_t,
-                     offs, wgts, n_nodes, stream);
+                     offs, wgts, n_nodes, win_counts, stream);
   }
 }
 
-// The v2 (V3 false) or v3 orbit instance of Stage for projected and
-// n_nodes (nullptr for a count the source does not take).
+// The v2 (V3 false; windowed or not) or v3 orbit instance of Stage for
+// projected and n_nodes (nullptr for a count the source does not take).
 template <bool V3, class Stage>
-const void* orbit_kernel(bool projected, int n_nodes) {
+const void* orbit_kernel(bool projected, int n_nodes, bool windowed = false) {
   const void* fn = nullptr;
   auto pick = [&](auto src) {
     using Src = decltype(src);
@@ -1547,8 +1680,10 @@ const void* orbit_kernel(bool projected, int n_nodes) {
       constexpr int S = decltype(s)::value;
       if constexpr (V3)
         fn = (const void*)chi2_kernel_v3<Src, S, Stage>;
+      else if (windowed)
+        fn = (const void*)chi2_kernel_v2<Src, S, Stage, true>;
       else
-        fn = (const void*)chi2_kernel_v2<Src, S, Stage>;
+        fn = (const void*)chi2_kernel_v2<Src, S, Stage, false>;
       return 0;
     });
   };
@@ -1564,6 +1699,19 @@ constexpr int STAGE_COPY = 0;
 constexpr int STAGE_TAB = 1;
 constexpr int STAGE_EXACT = 2;
 
+// kernel_info of chi2_kernel_v2's orbit instance with Stage (its table
+// table_floats floats) that a launch of n_t exposures runs.
+template <class Stage>
+int v2_info(int n_nodes, int projected, int table_floats, int n_t,
+            int* out) {
+  const bool win = v2_windowed<OrbitSource<false>, Stage>(n_t);
+  const int warps = win ? V2_WIN_WARPS : V2_WARPS;
+  const void* fn = orbit_kernel<false, Stage>(projected != 0, n_nodes, win);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return kernel_info(fn, 32 * warps,
+                     v2_smem_bytes<Stage>(table_floats, warps), out);
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Pointers are device pointers
@@ -1578,7 +1726,7 @@ extern "C" int chi2_supersampled_launch(
     const float* offs, const float* wgts, int n_nodes, void* stream) {
   return launch_v2(PlaneSource<false>{q0, q1, q2, front, n_t},
                    CopyStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, C}}, C,
-                   n_t, offs, wgts, n_nodes, stream);
+                   n_t, offs, wgts, n_nodes, nullptr, stream);
 }
 
 // v3 on planes: q0t, q1t, q2t, frontt are time-major (n_t, C); C % 128 == 0.
@@ -1595,18 +1743,22 @@ extern "C" int chi2_supersampled_v3_launch(
 
 // v2 on the orbit for B = C / Cb targets: time and obs (B, n_t); P, aR,
 // inc, e, w (C,), target-major. projected != 0 selects projected_z and
-// needs n_nodes == 1.
+// needs n_nodes == 1. At n_t >= V2_WINDOW_MIN_T the windowed instance
+// runs and adds its (draw, group) pairs walked and solved to win_counts[0]
+// and [1] (a device array; null: not counted); below it win_counts is not
+// read.
 extern "C" int chi2_from_orbit_launch(
     const float* time, const float* P, const float* aR, const float* inc,
     const float* e, const float* w, const float* cA, const float* cB1,
     const float* cB2, const float* seg, const float* g, const float* obs,
     float* out, int C, int n_t, const float* offs, const float* wgts,
-    int n_nodes, int projected, int Cb, void* stream) {
+    int n_nodes, int projected, int Cb, unsigned long long* win_counts,
+    void* stream) {
   return launch_orbit<false>(time, P, aR, inc, e, w,
                              CopyStage{Chi2Args{cA, cB1, cB2, seg, g, obs,
                                                 out, Cb}},
                              0, C, n_t, offs, wgts, n_nodes, projected,
-                             stream);
+                             win_counts, stream);
 }
 
 // v3 on the orbit: the same arguments; C % 128 == 0, Cb % 32 == 0.
@@ -1619,43 +1771,45 @@ extern "C" int chi2_from_orbit_v3_launch(
   return launch_orbit<true>(
       time, P, aR, inc, e, w,
       V3CopyStage{Chi2Args{cA, cB1, cB2, seg, g, obs, out, Cb}}, 0, C, n_t,
-      offs, wgts, n_nodes, projected, stream);
+      offs, wgts, n_nodes, projected, nullptr, stream);
 }
 
 // v2 with the tabulated coefficients computed in the kernel (TabStage),
 // for B = C / Cb targets: time and obs (B, n_t); P, aR, inc, e, w, k, u1,
 // u2, g (C,), target-major; tab the (n_rows, 162) coefficient table,
 // 16-byte aligned; segs a host TabSegs. projected != 0 selects projected_z
-// and needs n_nodes == 1.
+// and needs n_nodes == 1; win_counts as chi2_from_orbit_launch.
 extern "C" int chi2_from_orbit_tab_launch(
     const float* time, const float* P, const float* aR, const float* inc,
     const float* e, const float* w, const float* k, const float* u1,
     const float* u2, const float* g, const float* obs, const float* tab,
     float* out, int C, int n_t, const float* offs, const float* wgts,
-    int n_nodes, int projected, int Cb, const void* segs, void* stream) {
+    int n_nodes, int projected, int Cb, const void* segs,
+    unsigned long long* win_counts, void* stream) {
   const TabSegs& ts = *static_cast<const TabSegs*>(segs);
   if (!tab_segs_ok(ts)) return (int)cudaErrorInvalidValue;
   return launch_orbit<false>(
       time, P, aR, inc, e, w,
       TabStage{KudArgs{k, u1, u2, g, obs, tab, out, Cb}, ts}, 0, C, n_t,
-      offs, wgts, n_nodes, projected, stream);
+      offs, wgts, n_nodes, projected, win_counts, stream);
 }
 
 // v2 with the exact coefficients computed in the kernel (ExactStage): the
 // arguments of chi2_from_orbit_tab_launch with dct the (18, 18) dct_T of
 // the exact coefficients in place of the table and consts a host
-// ExactConsts in place of segs.
+// ExactConsts in place of segs; windowed from V2_EXACT_WINDOW_MIN_T.
 extern "C" int chi2_from_orbit_exact_launch(
     const float* time, const float* P, const float* aR, const float* inc,
     const float* e, const float* w, const float* k, const float* u1,
     const float* u2, const float* g, const float* obs, const float* dct,
     float* out, int C, int n_t, const float* offs, const float* wgts,
-    int n_nodes, int projected, int Cb, const void* consts, void* stream) {
+    int n_nodes, int projected, int Cb, const void* consts,
+    unsigned long long* win_counts, void* stream) {
   const ExactConsts& ec = *static_cast<const ExactConsts*>(consts);
   return launch_orbit<false>(
       time, P, aR, inc, e, w,
       ExactStage{KudArgs{k, u1, u2, g, obs, dct, out, Cb}, ec}, 0, C, n_t,
-      offs, wgts, n_nodes, projected, stream);
+      offs, wgts, n_nodes, projected, win_counts, stream);
 }
 
 // v3 with the tabulated coefficients computed in the kernel (V3TabStage):
@@ -1671,7 +1825,8 @@ extern "C" int chi2_from_orbit_v3_tab_launch(
   return launch_orbit<true>(
       time, P, aR, inc, e, w,
       V3TabStage{KudArgs{k, u1, u2, g, obs, tab, out, Cb}, ts},
-      tab_floats(ts.n_rows), C, n_t, offs, wgts, n_nodes, projected, stream);
+      tab_floats(ts.n_rows), C, n_t, offs, wgts, n_nodes, projected, nullptr,
+      stream);
 }
 
 // TabStage's coefficients alone (coeffs_kernel): out (C, 59) from k, u1,
@@ -1703,26 +1858,21 @@ extern "C" int deficit_coeffs_exact_launch(const float* k, const float* u1,
 
 // What the compiler and the occupancy calculator give chi2_kernel_v2's
 // orbit instance for n_nodes and projected with stage (0 CopyStage, 1
-// TabStage at a table of n_rows rows, 2 ExactStage): out[0] registers a
-// thread, out[1] local memory bytes a thread (spills), out[2] resident
-// blocks per SM, out[3] threads a block, out[4] dynamic shared memory bytes
-// a block, out[5] the device's SMs.
+// TabStage at a table of n_rows rows, 2 ExactStage), the instance a launch
+// of n_t exposures runs (windowed from the stage's kWindowMinT on): out[0]
+// registers a thread, out[1] local memory bytes a thread (spills), out[2]
+// resident blocks per SM, out[3] threads a block, out[4] dynamic shared
+// memory bytes a block, out[5] the device's SMs.
 extern "C" int chi2_from_orbit_v2_info(int stage, int n_nodes, int projected,
-                                       int n_rows, int* out) {
-  const void* fn = nullptr;
-  int smem = 0;
-  if (stage == STAGE_COPY) {
-    fn = orbit_kernel<false, CopyStage>(projected != 0, n_nodes);
-    smem = v2_smem_bytes<CopyStage>(0);
-  } else if (stage == STAGE_TAB && n_rows >= 1) {
-    fn = orbit_kernel<false, TabStage>(projected != 0, n_nodes);
-    smem = v2_smem_bytes<TabStage>(tab_floats(n_rows));
-  } else if (stage == STAGE_EXACT) {
-    fn = orbit_kernel<false, ExactStage>(projected != 0, n_nodes);
-    smem = v2_smem_bytes<ExactStage>(EXACT_TABLE);
-  }
-  if (!fn) return (int)cudaErrorInvalidValue;
-  return kernel_info(fn, V2_THREADS, smem, out);
+                                       int n_rows, int n_t, int* out) {
+  if (stage == STAGE_COPY)
+    return v2_info<CopyStage>(n_nodes, projected, 0, n_t, out);
+  if (stage == STAGE_TAB && n_rows >= 1)
+    return v2_info<TabStage>(n_nodes, projected, tab_floats(n_rows), n_t,
+                             out);
+  if (stage == STAGE_EXACT)
+    return v2_info<ExactStage>(n_nodes, projected, EXACT_TABLE, n_t, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // What the compiler and the occupancy calculator give chi2_kernel_v3's

@@ -31,9 +31,17 @@ run those in-kernel coefficient stages alone, to check them; no path
 calls them. In the source every v2 entry point is one kernel body over a
 coefficient stage (copy, tab or exact), and every v3 one another.
 
-The v3 orbit kernels skip the Kepler solve outside each draw's transit
-window (``transit_window``, ``window_contains``: their plain twins, for
-tests and bounds; no path calls them).
+The orbit kernels skip the Kepler solve outside each draw's transit
+window (``transit_window``, ``window_contains``, ``window_groups``: their
+plain twins, for tests and bounds; no path calls them): the v3 ones at
+every curve, the v2 ones (``chi2_from_orbit``, ``_tab``, ``_exact``) on
+curves of at least ``V2_WINDOW_MIN_T`` exposures (``_exact``:
+``V2_EXACT_WINDOW_MIN_T``), where they solve only the 32-point groups
+that hold a point of the draw's window and give the same output bit for
+bit. While the tracer of ``utils/profiling.py`` is on, those windowed
+launches count on the card the (draw, group) pairs they walk and solve,
+``window.groups`` and ``window.groups_solved``, folded into
+``profiling.counters()`` when it is read.
 
 On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
 plain torch version (``chi2_supersampled_plain``,
@@ -74,6 +82,12 @@ from .occult import _N_GL_F32, _gl_tables
 DRAW_TILE = 256     # v2: C % DRAW_TILE == 0
 DRAW_LANES = 128    # v3: C % DRAW_LANES == 0
 V2_GROUP = 32       # v2: points of one draw whose deficit is skipped at once
+# v2: the fewest exposures at which the orbit kernels take their windowed
+# instance, with the copy or tab stage and with the exact one
+# (csrc/chi2_supersampled.cu keeps the same values), and its counters
+V2_WINDOW_MIN_T = 256
+V2_EXACT_WINDOW_MIN_T = 512
+WINDOW_COUNTERS = ("window.groups", "window.groups_solved")
 V3_DRAWS = 8        # draws a warp of the v3 kernels takes at once
 MAX_NODES = 4
 
@@ -186,33 +200,27 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int]
-        for fn in (lib.chi2_supersampled_launch,
-                   lib.chi2_supersampled_v3_launch):
-            fn.argtypes = [ctypes.c_void_p] * 11 + tail + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.chi2_from_orbit_launch, lib.chi2_from_orbit_v3_launch):
-            fn.argtypes = ([ctypes.c_void_p] * 13 + tail
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        kud = (lib.chi2_from_orbit_tab_launch,
-               lib.chi2_from_orbit_v3_tab_launch,
-               lib.chi2_from_orbit_exact_launch)
-        for fn in kud:
-            fn.argtypes = ([ctypes.c_void_p] * 13 + tail
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                              ctypes.c_void_p])
-        coeffs = (lib.deficit_coeffs_tab_launch,
-                  lib.deficit_coeffs_exact_launch)
-        for fn in coeffs:
-            fn.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        infos = (lib.chi2_from_orbit_v2_info, lib.chi2_from_orbit_v3_info)
-        for fn in infos:
-            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        for fn in (*kud, *coeffs, *infos):
-            fn.restype = ctypes.c_int
+        P, I = ctypes.c_void_p, ctypes.c_int
+        tail = [I, I, P, P, I]   # C, n_t, offs, wgts, n_nodes
+        # the orbit entry points: 13 arrays, tail, projected and Cb, then
+        # the stage's constants (the tab and exact stages), the window
+        # counters (v2) and the stream
+        orbit = [P] * 13 + tail + [I, I]
+        for name, types in {
+                "chi2_supersampled_launch": [P] * 11 + tail + [P],
+                "chi2_supersampled_v3_launch": [P] * 11 + tail + [P],
+                "chi2_from_orbit_launch": orbit + [P, P],
+                "chi2_from_orbit_v3_launch": orbit + [P],
+                "chi2_from_orbit_tab_launch": orbit + [P, P, P],
+                "chi2_from_orbit_exact_launch": orbit + [P, P, P],
+                "chi2_from_orbit_v3_tab_launch": orbit + [P, P],
+                "deficit_coeffs_tab_launch": [P] * 5 + [I, P, P],
+                "deficit_coeffs_exact_launch": [P] * 5 + [I, P, P],
+                "chi2_from_orbit_v2_info": [I] * 5 + [P],
+                "chi2_from_orbit_v3_info": [I] * 4 + [P]}.items():
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = I
         _lib = lib
     return _lib
 
@@ -372,6 +380,16 @@ def _launch(name, arrays, C, n_t, offs, wgts, *flags):
     return out
 
 
+def _window_counts(device):
+    """The device address a windowed v2 orbit launch adds its window
+    counters to (``WINDOW_COUNTERS``, kept by the tracer), or None (null:
+    not counted) while tracing is off. An unwindowed launch does not read
+    it."""
+    if not profiling.enabled():
+        return None
+    return profiling.device_counters(WINDOW_COUNTERS, device).data_ptr()
+
+
 def _nodes(offs, wgts):
     return tuple(float(o) for o in offs), tuple(float(w) for w in wgts)
 
@@ -507,8 +525,8 @@ def chi2_from_orbit(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g, obs_dev,
     Cb = _check_orbit(*args, offs, wgts, ns, DRAW_TILE)
     if not _device_path(P):
         return chi2_from_orbit_plain(*args, offs=offs, wgts=wgts, ns=ns)
-    return _launch("chi2_from_orbit", args, P.shape[0], time.shape[-1], offs,
-                   wgts, int(ns == 1), Cb)
+    return _launch("chi2_from_orbit", args, P.shape[0], time.shape[-1],
+                   offs, wgts, int(ns == 1), Cb, _window_counts(P.device))
 
 
 def chi2_from_orbit_v3(time, P, a_R, inc, e, w, cA, cB1, cB2, seg, g,
@@ -556,12 +574,14 @@ def _orbit_plain_from(stage, time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
 
 
 def chi2_from_orbit_tab_plain(time, P, a_R, inc, e, w, k, u1, u2, g,
-                              obs_dev, *, offs, wgts, ns):
+                              obs_dev, *, offs, wgts, ns, group=None):
     """Plain torch version of the tab kernels (any device): the tabulated
     coefficients of ``fastcore.cheb_deficit_coeffs_tab``, then
-    ``chi2_from_orbit_plain``."""
+    ``chi2_from_orbit_plain`` (``group = V2_GROUP``: the v2 kernels' skip
+    rule)."""
     return _orbit_plain_from("tab", time, P, a_R, inc, e, w, k, u1, u2, g,
-                             obs_dev, offs=offs, wgts=wgts, ns=ns)
+                             obs_dev, offs=offs, wgts=wgts, ns=ns,
+                             group=group)
 
 
 def chi2_from_orbit_exact_plain(time, P, a_R, inc, e, w, k, u1, u2, g,
@@ -589,7 +609,14 @@ def chi2_from_orbit_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev, *,
         (C,) sum of squared residuals (divide by sigma^2 outside).
     Cb must be a multiple of 256. A CPU tensor runs the plain version; a
     CUDA tensor launches the kernel, once for all B targets, and a draw's
-    result is the same whatever else the launch holds.
+    result is the same whatever else the launch holds. The kernel skips
+    the deficit in each 32-point group of a draw with no point in transit
+    and, from ``V2_WINDOW_MIN_T`` exposures on, the Kepler solve and z^2
+    model too in each group with no point inside the draw's transit
+    window (``window_groups``); a skipped group adds obs^2 alone, and the
+    output is the same bit for bit with or without the window. On a curve
+    sorted by time, as folded curves are, a long curve's groups mostly
+    fall outside the window.
     """
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
@@ -610,7 +637,10 @@ def chi2_from_orbit_exact(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
     Args, checks and result as ``chi2_from_orbit_tab``. A CPU tensor runs
     the plain version (``chi2_from_orbit_exact_plain``); a CUDA tensor
     launches the kernel, once for all B targets, and a draw's result is
-    the same whatever else the launch holds.
+    the same whatever else the launch holds. The kernel skips as the tab
+    kernel does, the Kepler solve outside the transit window from
+    ``V2_EXACT_WINDOW_MIN_T`` exposures on (its coefficient stage is most
+    of a draw's work on a shorter curve).
     """
     offs, wgts = _nodes(offs, wgts)
     args = (time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev)
@@ -626,13 +656,15 @@ def _launch_kud(name, stage, args, offs, wgts, ns, Cb):
     """Launch an entry point that computes ``stage``'s coefficients in the
     kernel, on checked CUDA tensors ``args`` (those of
     ``chi2_from_orbit_tab``), with the stage's table on the device and its
-    constants."""
+    constants, and for a v2 one the window counters."""
     time, P = args[0], args[1]
     _, table, consts = _STAGES[stage]
     consts = consts()
+    v2 = () if name == "chi2_from_orbit_v3_tab" else (
+        _window_counts(P.device),)
     return _launch(name, (*args, _device_table(P.device, table)), P.shape[0],
                    time.shape[-1], offs, wgts, int(ns == 1), Cb,
-                   ctypes.addressof(consts))
+                   ctypes.addressof(consts), *v2)
 
 
 def chi2_from_orbit_v3_tab(time, P, a_R, inc, e, w, k, u1, u2, g, obs_dev,
@@ -722,14 +754,25 @@ def transit_window(P, a_R, inc, e, w, zmax, offs):
 
 def window_contains(time, P, mid, half):
     """(C, n_t) bool: which exposure centres ``time`` (n_t,) lie in each
-    draw's window (mid, half of ``transit_window``), as the v3 kernels test
-    them before solving Kepler."""
+    draw's window (mid, half of ``transit_window``), as the orbit kernels
+    test them before solving Kepler."""
     n = ((1.0 / P) * (2.0 * math.pi))[:, None]
     x = n * time[None, :]
     y = x - mid[:, None]
     yw = y - (2.0 * math.pi) * torch.round(y * (1.0 / (2.0 * math.pi)))
     return (half[:, None] >= WIN_WHOLE) | (
         torch.abs(yw) <= half[:, None] + WIN_REL_M * torch.abs(x))
+
+
+def window_groups(time, P, mid, half):
+    """(C, ceil(n_t / V2_GROUP)) bool: the windowed v2 kernels' vote, which
+    of each draw's runs of ``V2_GROUP`` consecutive exposures (runs start
+    at the first exposure) hold a centre inside the draw's window
+    (``window_contains``) and so run the Kepler solve."""
+    inside = window_contains(time, P, mid, half)
+    n_t = inside.shape[1]
+    return torch.nn.functional.pad(inside, (0, -n_t % V2_GROUP)).view(
+        inside.shape[0], -1, V2_GROUP).any(dim=2)
 
 
 def _coeffs_launch(stage, k, u1, u2):
@@ -806,27 +849,29 @@ def _info(fn_name, args, device):
 V2_STAGES = ("copy", "tab", "exact")   # chi2_from_orbit_v2_info's codes
 
 
-def v2_kernel_info(stage, ns, n_nodes, device="cuda"):
+def v2_kernel_info(stage, ns, n_nodes, n_t=1, device="cuda"):
     """What the compiler and the occupancy calculator give the v2 orbit
     kernel's instance with coefficient stage ``stage`` ("copy":
     ``chi2_from_orbit``, "tab": ``chi2_from_orbit_tab``, "exact":
-    ``chi2_from_orbit_exact``) for ``ns`` and ``n_nodes`` on ``device``:
-    registers and local memory bytes (spills) a thread, resident blocks and
-    warps per SM, threads and dynamic shared memory bytes a block, and the
-    SMs."""
+    ``chi2_from_orbit_exact``) for ``ns`` and ``n_nodes`` on ``device``,
+    the one a launch over ``n_t`` exposures runs (windowed from
+    ``V2_WINDOW_MIN_T``, or for "exact" ``V2_EXACT_WINDOW_MIN_T``, on):
+    registers and local memory bytes (spills) a thread, resident blocks
+    and warps per SM, threads and dynamic shared memory bytes a block, and
+    the SMs."""
     return _info("chi2_from_orbit_v2_info",
                  (V2_STAGES.index(stage), n_nodes, int(ns == 1),
-                  _tab_segs().n_rows), device)
+                  _tab_segs().n_rows, n_t), device)
 
 
-def tab_kernel_info(ns, n_nodes, device="cuda"):
+def tab_kernel_info(ns, n_nodes, n_t=1, device="cuda"):
     """``v2_kernel_info`` of the tab instance."""
-    return v2_kernel_info("tab", ns, n_nodes, device)
+    return v2_kernel_info("tab", ns, n_nodes, n_t, device)
 
 
-def exact_kernel_info(ns, n_nodes, device="cuda"):
+def exact_kernel_info(ns, n_nodes, n_t=1, device="cuda"):
     """``v2_kernel_info`` of the exact instance."""
-    return v2_kernel_info("exact", ns, n_nodes, device)
+    return v2_kernel_info("exact", ns, n_nodes, n_t, device)
 
 
 def v3_kernel_info(ns, n_nodes, tab=True, device="cuda"):

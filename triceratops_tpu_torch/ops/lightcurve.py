@@ -220,7 +220,12 @@ def _chi2_fused(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
     ``chi2_core.chi2_from_orbit_v3``. GL exposure nodes and the Taylor z^2
     model for ns > 1, the exact projected separation at one node for ns =
     1. time and obs_dev are (n_t,) for one target or (B, n_t), the draws
-    then B equal target-major blocks."""
+    then B equal target-major blocks. The v2 kernels skip the deficit in
+    each 32-point group of a draw with no point in transit and, on curves
+    of at least ``chi2_core.V2_WINDOW_MIN_T`` exposures, the Kepler solve
+    too in each group with no point inside the draw's transit window, with
+    the same output; a curve sorted by time, as ``api._lc`` keeps a folded
+    one, puts most of a long curve's groups outside the window."""
     if ns > 1:
         offs, wgt = _gl_exposure_nodes(exptime, ns)
     else:

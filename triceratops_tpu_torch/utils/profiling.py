@@ -23,6 +23,11 @@
   opened and closed on one thread.
 * ``count(name, n=1)``: adds n to a named counter, in every mode;
   ``counters()`` reads them. ``reset()`` clears spans and counters.
+  ``device_counters(names, device)`` gives kernels an int64 array on the
+  card to add counts to (a launch hands its address to the kernel only
+  while ``enabled()``); ``counters()`` folds each such array into the
+  counters of its names and zeroes it, so reading the counters, never a
+  launch, waits for the card.
 * ``trace(logdir)``: a ``torch.profiler`` trace (host, and the card when
   there is one) around a block, in ``"profiler"`` mode, exported as a
   Chrome trace viewable in Perfetto or chrome://tracing.
@@ -53,6 +58,7 @@ _profiler = False    # "profiler" mode
 _records = []        # [name, start_ns, end_ns, parent, call] per kept span
 _stack = []          # indices into _records of the open spans (-1: dropped)
 _counters = {}
+_device_counts = {}   # (names, device) -> int64 tensor kernels add to
 _calls = 0
 
 
@@ -132,13 +138,37 @@ def span(name: str):
     return noop
 
 
+def enabled() -> bool:
+    """Whether tracing is on (mode "host" or "profiler")."""
+    return _on
+
+
 def count(name: str, n: int = 1):
     """Add ``n`` to the counter ``name`` (counted in every mode)."""
     _counters[name] = _counters.get(name, 0) + n
 
 
+def device_counters(names: tuple, device) -> torch.Tensor:
+    """The int64 array on ``device``, one entry per name of ``names``,
+    that kernels add counts to; made zeroed on first use and kept by the
+    tracer, which folds it into the counters when they are read."""
+    key = (tuple(names), torch.device(device))
+    arr = _device_counts.get(key)
+    if arr is None:
+        arr = _device_counts[key] = torch.zeros(len(names), dtype=torch.int64,
+                                                device=device)
+    return arr
+
+
 def counters() -> dict:
-    """A copy of every counter."""
+    """A copy of every counter, after the device counters' counts are
+    added to them (this waits for the card's queued work) and zeroed."""
+    for (names, _), arr in _device_counts.items():
+        vals = arr.tolist()
+        if any(vals):
+            arr.zero_()
+            for name, v in zip(names, vals):
+                count(name, v)
     return dict(_counters)
 
 
@@ -173,6 +203,8 @@ def reset():
         raise RuntimeError("profiling.reset() inside an open span")
     _records.clear()
     _counters.clear()
+    for arr in _device_counts.values():
+        arr.zero_()
     _calls = 0
 
 
