@@ -80,6 +80,9 @@ class TestCompanionPriors:
     @pytest.mark.parametrize("plx", [11.0, np.nan])
     @pytest.mark.parametrize("curve", [False, True])
     def test_bound_and_background_priors(self, M_s, plx, curve):
+        """The bound priors against the JAX package on float64 inputs
+        (upstream's arithmetic; in float32 its Pmax overflows, module
+        priors/companion.py), the background prior in float32."""
         seps, cons = (SEPS, DMAGS) if curve else (f32([2.2]), f32([1.0]))
         dm = f32(np.linspace(-2.0, 12.0, 4001))
         targs = (torch.tensor(M_s, dtype=torch.float32),
@@ -88,10 +91,11 @@ class TestCompanionPriors:
         jargs = (jnp.float32(M_s), jnp.float32(plx),
                  jnp.asarray(np.abs(dm)), jnp.asarray(seps),
                  jnp.asarray(cons))
+        jargs64 = tuple(jnp.asarray(a, jnp.float64) for a in jargs)
         for name in ("lnprior_bound_TP", "lnprior_bound_EB"):
             got = tco.clamp_companion_prior(getattr(tco, name)(*targs), tf(dm))
-            want = jco.clamp_companion_prior(getattr(jco, name)(*jargs),
-                                             jnp.asarray(dm))
+            want = jco.clamp_companion_prior(getattr(jco, name)(*jargs64),
+                                             jnp.asarray(dm, jnp.float64))
             _close(got, want, name, rtol=1e-5)
         _close(tco.lnprior_background(2999, *targs[2:]),
                jco.lnprior_background(2999, *jargs[2:]), "background",

@@ -17,6 +17,15 @@ floor(u * hi) from numpy uniforms keyed by the draw count, through
 ``jax.random.randint`` (patched for the test's duration; ``hi`` may be a
 traced value inside the jitted samplers) and the port's
 ``engine._randint`` seam.
+
+Bound-companion prior: the JAX package forms the cube of the companion's
+separation in cm in float32, which overflows, so its log10 Pmax reads
+inf; the port computes it in logs and in float64 (README, known
+divergences).
+``shared_uniforms`` therefore also runs the JAX package's own
+``priors.companion._max_porbs`` on float64 inputs (upstream's
+arithmetic; tests/conftest.py turns on x64) and hands its float32 cast
+on, so the JAX side's law rows are the ones the port is held to.
 """
 
 import os
@@ -30,6 +39,7 @@ import pytest
 import torch
 
 import triceratops_tpu.scenarios.engine as jeng
+from triceratops_tpu.priors import companion as jco
 from triceratops_tpu_torch.scenarios import engine as teng
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,9 +104,22 @@ def _jax_lattice_strat(u, axes, n, key):
     return out
 
 
+_JAX_MAX_PORBS = jco._max_porbs
+
+
+def _jax_max_porbs_f64(*args):
+    """triceratops_tpu.priors.companion._max_porbs evaluated on float64
+    inputs, cast back to float32; behind an optimization barrier, so XLA
+    does not fold it on the shared uniforms while it compiles."""
+    args = jax.lax.optimization_barrier(
+        tuple(jnp.asarray(a, jnp.float64) for a in args))
+    return _JAX_MAX_PORBS(*args).astype(jnp.float32)
+
+
 @pytest.fixture
 def shared_uniforms(monkeypatch):
     jax.clear_caches()
+    monkeypatch.setattr(jco, "_max_porbs", _jax_max_porbs_f64)
     monkeypatch.setattr(
         jeng, "_uniforms",
         lambda key, n, N: [jnp.asarray(a) for a in uniforms_np(n, N)])

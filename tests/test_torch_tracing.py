@@ -6,7 +6,9 @@ CPU at small N.
 * host mode: one ``tri.call`` per call, a ``tri.row.*`` span per evidence
   row computed, every sampler and core span under a row and in the call's
   id, self times that add up to the roots' durations; the draws handed to
-  the cores and the MOLUSC parses counted;
+  the cores and the MOLUSC parses counted; without a MOLUSC file, each
+  bound-companion prior block in ``tri.prior.companion`` under its P* or
+  S* sampler and its draws counted under ``prior.companion``;
 * profiler mode (``profiling.trace``): the same spans as
   ``user_annotation`` ranges of the Chrome trace, nested as in host mode;
 * the tracer's own rules: nesting and call ids, the span cap, misuse.
@@ -36,6 +38,12 @@ CALC_ROWS = ["TP", "PTP", "NTP", "NEB"]
 BATCH_DROP = DROP + [f"{name}x2P" for name in DROP if "EB" in name]
 CALC_CORES = 5
 BATCH_FAMILIES = ("TP", "PTP", "NTP", "NEB")
+# the law run keeps the P* and S* rows; the prior blocks each of their
+# samplers opens (the twin branch of PEB and SEB its own) and their draws
+LAW_DROP = ["EB", "DTP", "DEB", "BTP", "BEB"]
+LAW_PRIOR_BLOCKS = {"tri.sample.ptp": [N], "tri.sample.stp": [N],
+                    "tri.sample.peb": [N, N // 4],
+                    "tri.sample.seb": [N, N // 2]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,6 +139,18 @@ def batch_run(files):
                                 has_cc=has_cc, drop_scenario=BATCH_DROP,
                                 device="cpu")
     return _traced("host", run)
+
+
+@pytest.fixture(scope="module")
+def law_run(files):
+    """calc_probs with no MOLUSC file: the bound companions from the law,
+    each draw weighed by the companion-rate prior."""
+    tri, _ = files
+    t = _target(tri)
+    time, flux, sigma = _curve()
+    return _traced("host", lambda: t.calc_probs(
+        time, flux, sigma, P_orb=3.0, N=N, nsamples=2, verbose=0,
+        device="cpu", key=3, drop_scenario=LAW_DROP))
 
 
 def _ancestors(spans, i):
@@ -276,6 +296,26 @@ def test_counters_of_a_call(path, calc_run, batch_run):
     assert counts["draws.core"] == B * (4 * N + N // 4)
     assert counts["io.molusc_read"] == B
     assert not any(k.startswith("launch.") for k in counts)
+
+
+@pytest.mark.parametrize("path", ["law", "molusc"])
+def test_companion_prior_span_and_counter(path, law_run, calc_run):
+    """Without a MOLUSC file each P* and S* sampler opens
+    ``tri.prior.companion`` once a branch, directly under its span, and
+    ``prior.companion`` counts those branches' draws; a MOLUSC call opens
+    none and counts 0."""
+    sp, _, counts = law_run if path == "law" else calc_run
+    blocks = [s for s in sp if s.name == "tri.prior.companion"]
+    if path == "molusc":
+        assert blocks == [] and counts.get("prior.companion", 0) == 0
+        return
+    under = {}
+    for s in blocks:
+        under.setdefault(sp[s.parent].name, []).append(s)
+    assert {k: len(v) for k, v in under.items()} == {
+        k: len(v) for k, v in LAW_PRIOR_BLOCKS.items()}
+    assert counts["prior.companion"] == sum(
+        sum(v) for v in LAW_PRIOR_BLOCKS.values())
 
 
 def test_profiler_mode_ranges_nest_as_host_spans(files, tmp_path):

@@ -8,10 +8,22 @@ TP variant assumes a companion period > 2500 d, so log10 P < 3.4 terms
 are dropped; the EB variant assumes a tertiary period > 10 d, so only the
 t1 term is dropped). Reference priors.py:580-1005; the M_s and P_orb
 priors (priors.py:386-577) are host numpy.
+
+One deliberate departure from the JAX package, toward the reference's
+float64: the bound-companion priors evaluate in float64 and return the
+draws' dtype (``_upstream_f64``), and log10 of the largest companion
+period is computed in logs (``_log10_max_porb``). The JAX package forms
+(separation [cm])^3 in float32, which overflows beyond about 0.47 AU, so
+its log10 Pmax reads inf and every bound-companion draw takes the
+saturated t4 + t5 term. In float32, even in logs, the rounding of log10
+Pmax would move ln f_comp by up to ~1e-5 nats where the rate vanishes
+(log10 Pmax just above 3.4 for TP, 1 for EB); in float64 the prior is the
+reference's to the output's rounding.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -20,6 +32,10 @@ import torch
 from ..constants import G, MSUN, AU, PI
 
 _INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
+# log10 Pmax [d] = _LP0 + 1.5 log10(sep [AU]) - 0.5 log10(M [Msun]):
+# Kepler's third law in logs, its constant folded once in float64
+_LP0 = (0.5 * (math.log10(4 * PI**2 / (G * MSUN)) + 3 * math.log10(AU))
+        - math.log10(86400.0))
 
 
 def separation_at_contrast(delta_mags, separations, contrasts):
@@ -49,10 +65,9 @@ def _f123(logM):
     return f1, f2, f3
 
 
-def _fcomp_terms(max_Porbs, f1, f2, f3):
-    """Per-draw Moe-Di Stefano piecewise terms: (lp, t-terms)."""
+def _fcomp_terms(lp, f1, f2, f3):
+    """Per-draw Moe-Di Stefano piecewise terms of lp = log10 Pmax [d]."""
     alpha, dlogP = 0.018, 0.7
-    lp = torch.log10(max_Porbs)
     t2_partial = 0.5 * (lp - 1.0) * (2.0 * f1 + (f2 - f1 - alpha * dlogP) * (lp - 1.0))
     t2 = 0.5 * (2.0 - 1.0) * (2.0 * f1 + (f2 - f1 - alpha * dlogP) * (2.0 - 1.0))
     t3_partial = 0.5 * alpha * (lp**2 - 5.4 * lp + 6.8) + f2 * (lp - 2.0)
@@ -65,14 +80,29 @@ def _fcomp_terms(max_Porbs, f1, f2, f3):
           * (0.238095 * 5.5**2 - 0.952381 * 5.5 + 0.485714))
     t5_partial = f3 * (3.33333 - 17.3566 * torch.exp(-0.3 * lp))
     t5 = f3 * (3.33333 - 17.3566 * math.exp(-0.3 * 8.0))
-    return lp, t2_partial, t2, t3_partial, t3, t4_partial, t4, t5_partial, t5
+    return t2_partial, t2, t3_partial, t3, t4_partial, t4, t5_partial, t5
 
 
-def _max_porbs(M_eval, plx, delta_mags, separations, contrasts):
+def _log10_max_porb(M_eval, plx, delta_mags, separations, contrasts):
+    """log10 of the period [d] of a companion at the contrast-limited
+    separation, with no intermediate beyond float32's range; a NaN
+    parallax reads 0.1 mas."""
     plx = torch.where(torch.isnan(plx), torch.full_like(plx, 0.1), plx)
-    d = 1000.0 / plx
-    seps = d * separation_at_contrast(delta_mags, separations, contrasts)
-    return ((4 * PI**2) / (G * M_eval * MSUN) * (seps * AU) ** 3) ** 0.5 / 86400.0
+    seps = (1000.0 / plx) * separation_at_contrast(delta_mags, separations,
+                                                   contrasts)
+    return _LP0 + 1.5 * torch.log10(seps) - 0.5 * torch.log10(M_eval)
+
+
+def _upstream_f64(prior):
+    """Evaluate a bound-companion prior in float64 and return it in the
+    draws' (``delta_mags``') dtype."""
+    @functools.wraps(prior)
+    def wrapper(M_s, plx, delta_mags, separations, contrasts):
+        f64 = functools.partial(torch.as_tensor, dtype=torch.float64,
+                                device=delta_mags.device)
+        return prior(f64(M_s), f64(plx), f64(delta_mags), f64(separations),
+                     f64(contrasts)).to(delta_mags.dtype)
+    return wrapper
 
 
 def _mass_scaled(f_comp, M_s):
@@ -81,6 +111,7 @@ def _mass_scaled(f_comp, M_s):
     return torch.log(torch.where(M_s >= 1.0, f_comp, f_small))
 
 
+@_upstream_f64
 def lnprior_bound_TP(M_s, plx, delta_mags, separations, contrasts):
     """Bound-companion log-prior, planet variant: segments with
     log10(Pmax) < 3.4 are zeroed and the 3.4-5.5 segment enters without
@@ -88,9 +119,9 @@ def lnprior_bound_TP(M_s, plx, delta_mags, separations, contrasts):
     tensors."""
     M_eval = torch.where(M_s >= 1.0, M_s, torch.ones_like(M_s))
     f1, f2, f3 = _f123(torch.log10(M_eval))
-    max_Porbs = _max_porbs(M_eval, plx, delta_mags, separations, contrasts)
-    (lp, _t2p, _t2, _t3p, _t3, t4_partial, t4, t5_partial, t5) = _fcomp_terms(
-        max_Porbs, f1, f2, f3)
+    lp = _log10_max_porb(M_eval, plx, delta_mags, separations, contrasts)
+    (_t2p, _t2, _t3p, _t3, t4_partial, t4, t5_partial, t5) = _fcomp_terms(
+        lp, f1, f2, f3)
     zero = torch.zeros_like(lp)
     f_comp = torch.where(lp < 3.4, zero,
                          torch.where(lp < 5.5, t4_partial,
@@ -99,14 +130,15 @@ def lnprior_bound_TP(M_s, plx, delta_mags, separations, contrasts):
     return _mass_scaled(f_comp, M_s)
 
 
+@_upstream_f64
 def lnprior_bound_EB(M_s, plx, delta_mags, separations, contrasts):
     """Bound-companion log-prior, EB variant: only the t1 term is dropped
     (reference priors.py:861-891)."""
     M_eval = torch.where(M_s >= 1.0, M_s, torch.ones_like(M_s))
     f1, f2, f3 = _f123(torch.log10(M_eval))
-    max_Porbs = _max_porbs(M_eval, plx, delta_mags, separations, contrasts)
-    (lp, t2_partial, t2, t3_partial, t3, t4_partial, t4, t5_partial, t5) = (
-        _fcomp_terms(max_Porbs, f1, f2, f3))
+    lp = _log10_max_porb(M_eval, plx, delta_mags, separations, contrasts)
+    (t2_partial, t2, t3_partial, t3, t4_partial, t4, t5_partial, t5) = (
+        _fcomp_terms(lp, f1, f2, f3))
     f_comp = torch.where(
         lp < 1.0, torch.zeros_like(lp),
         torch.where(lp < 2.0, t2_partial,

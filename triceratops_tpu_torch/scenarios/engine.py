@@ -24,8 +24,10 @@ and every drawn star or MOLUSC-row index through another,
 the same numbers.
 
 Each sampler runs in the span ``tri.sample.<name>`` (``sample_ptp`` in
-``tri.sample.ptp``), and ``run_finalize`` in ``tri.reduce``, of
-``utils/profiling.py``.
+``tri.sample.ptp``), each bound-companion prior block of the P* and S*
+samplers (companion law, no MOLUSC file) in ``tri.prior.companion`` with
+its draws counted under ``prior.companion``, and ``run_finalize`` in
+``tri.reduce``, of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -140,15 +142,18 @@ def _companion_prior_bound(kind, M_s, plx, masses_comp, fluxratios_comp,
     """Bound-companion prior block of the P*/S* scenarios (reference
     ml.py:478-509, :695-727). kind: 'TP' or 'EB'. Without a contrast curve
     (cc_filt None) the TESS-band flux ratios set delta_mag; with one, the
-    curve's band does."""
-    if cc_filt is None:
-        fr = fluxratios_comp
-    else:
-        fr = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
-    delta_mags = 2.5 * torch.log10(fr / (1.0 - fr))
-    fn = lnprior_bound_TP if kind == "TP" else lnprior_bound_EB
-    lnp = fn(M_s, plx, torch.abs(delta_mags), seps, cons)
-    return clamp_companion_prior(lnp, delta_mags)
+    curve's band does. Runs in the span ``tri.prior.companion`` and counts
+    its draws under ``prior.companion``."""
+    with profiling.span("tri.prior.companion"):
+        profiling.count("prior.companion", masses_comp.shape[0])
+        if cc_filt is None:
+            fr = fluxratios_comp
+        else:
+            fr = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
+        delta_mags = 2.5 * torch.log10(fr / (1.0 - fr))
+        fn = lnprior_bound_TP if kind == "TP" else lnprior_bound_EB
+        lnp = fn(M_s, plx, torch.abs(delta_mags), seps, cons)
+        return clamp_companion_prior(lnp, delta_mags)
 
 
 def _background_prior(has_cc, N_comp, fluxratios_draw, delta_band_draw,
@@ -757,16 +762,19 @@ def _seb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
         lnprior = torch.zeros_like(qs_comp)
     else:
         # the prior's delta-mag combines the companion and its EB
-        # (ml.py:1200-1235)
-        if cc_filt is None:
-            fr_c, fr_e = fluxratios_comp, fluxratios
-        else:
-            fr_c = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
-            fr_e = _fluxratio_vs_target(masses, M_s, cc_filt)
-        delta_mags = 2.5 * torch.log10(fr_c / (1.0 - fr_c)
-                                       + fr_e / (1.0 - fr_e))
-        lnp = lnprior_bound_EB(M_s, plx, torch.abs(delta_mags), seps, cons)
-        lnprior = clamp_companion_prior(lnp, delta_mags)
+        # (ml.py:1200-1235); the span and counter of _companion_prior_bound
+        with profiling.span("tri.prior.companion"):
+            profiling.count("prior.companion", n)
+            if cc_filt is None:
+                fr_c, fr_e = fluxratios_comp, fluxratios
+            else:
+                fr_c = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
+                fr_e = _fluxratio_vs_target(masses, M_s, cc_filt)
+            delta_mags = 2.5 * torch.log10(fr_c / (1.0 - fr_c)
+                                           + fr_e / (1.0 - fr_e))
+            lnp = lnprior_bound_EB(M_s, plx, torch.abs(delta_mags), seps,
+                                   cons)
+            lnprior = clamp_companion_prior(lnp, delta_mags)
     kk, ksec = eb_radius_ratios(radii, radii_comp)
     F_EB = fluxratios / (1.0 - fluxratios)
     F_comp = fluxratios_comp / (1.0 - fluxratios_comp)
