@@ -18,6 +18,12 @@ Drives the port's main path once at full size and checks it:
      kernel's coefficient function (chi2_core.deficit_coeffs_exact) to the
      CPU's exact coefficients (fastcore.cheb_deficit_coeffs) within 3e-6,
      and prints that instance's registers, local memory and warps per SM;
+  samplers. builds the sampler kernels (csrc/samplers.cu) with their
+     register report and runs every branch of every sampler the rows run
+     (SAMPLER_VARIANTS) at 1,000,192 draws on the card against its plain
+     torch chain (``<sampler>.plain``) on generators of one seed: every
+     field and mask bit for bit, one ``launch.sampler.<entry>`` a branch,
+     and each path's time by CUDA events;
   3. compares each of the seven kernels with its plain torch version on the
      card at the main path's shape (n_t = 100, GL-4), at long-curve shapes
      (n_t = 8055 and the full n_t = 20099) and at ns = 1, and times them
@@ -113,7 +119,8 @@ Drives the port's main path once at full size and checks it:
      F1's TP and DTP rows against the JAX package's 100-key row record
      (parity/jax_rows.json).
 
-Prints a JSON line with the seven kernels' numbers, then as its last line
+Prints a JSON line with the seven kernels' numbers, one with the sampler
+phase's rows, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
 CUDA card, and outside a checkout of the repository.
 
@@ -194,6 +201,9 @@ COUNTERS = tuple(f"launch.{name}" for name in (
     "chi2_supersampled", "chi2_supersampled_v3", "chi2_from_orbit",
     "chi2_from_orbit_v3", "chi2_from_orbit_tab", "chi2_from_orbit_v3_tab",
     "chi2_from_orbit_exact", "deficit_coeffs_tab", "deficit_coeffs_exact"))
+# the sampler kernels' entries (launch.sampler.<entry>): kept apart from
+# COUNTERS, which _only holds to the one chi^2 kernel of a path
+SAMPLER_ENTRIES = ("planet", "eb", "twin")
 # phase 10: targets in the batch, the seed of their (Rp, P) rows and the
 # ranges they are drawn from [Re], [d]. At sigma = 4e-4 a planet of ~10 Re
 # or more makes the companion and background rows needles whose lnZ
@@ -1084,6 +1094,18 @@ def _reset(chi2_core):
     chi2_core.profiling.reset()
 
 
+def _sampler_launches(chi2_core):
+    counts = chi2_core.profiling.counters()
+    return {e: counts.get(f"launch.sampler.{e}", 0) for e in SAMPLER_ENTRIES}
+
+
+def _branches(n_rows):
+    """The sampler launches of a call that computes n_rows rows: the rows
+    come in families of three (X, XEB, XEBx2P), each one planet branch,
+    one EB normal branch and its conditioned twin set."""
+    return dict.fromkeys(SAMPLER_ENTRIES, n_rows // 3)
+
+
 def _only(c, name):
     """name rose, every other counter stayed at 0."""
     return c[name] > 0 and all(v == 0 for n, v in c.items() if n != name)
@@ -1095,7 +1117,8 @@ def phase_slice(torch, chi2_core, tr, workdir):
     kernel on the main path, the exact kernel under
     TRICERATOPS_COEFFS=exact, orbit v2 on the torch-stage route under it,
     the v3 tab kernel under the v3 schedule, orbit v3 under both), run,
-    the target and phase 6's median."""
+    the target, phase 6's median and the sampler launches of phase 4's
+    call."""
     import contextlib
 
     from triceratops_tpu_torch.ops import fastcore, lightcurve
@@ -1104,11 +1127,13 @@ def phase_slice(torch, chi2_core, tr, workdir):
     _reset(chi2_core)
     wall0 = run(1)
     main_counts = _counts(chi2_core)
+    main_samplers = _sampler_launches(chi2_core)
     lnZ, probs = t.lnZ.copy(), t.probs["prob"].to_numpy()
     names = t.probs["scenario"].values
     print(f"phase 4: calc_probs N={N_DRAWS} nsamples={NSAMPLES}, "
           f"{len(lnZ)} rows: {wall0:.3f} s (first call), launches "
-          f"{main_counts}; FPP {t.FPP:.6g}, NFPP {t.NFPP:.6g}")
+          f"{main_counts}, sampler launches {main_samplers}; FPP "
+          f"{t.FPP:.6g}, NFPP {t.NFPP:.6g}")
     print("phase 4: lnZ " + ", ".join(
         f"{n}={v:.4f}" for n, v in zip(names, lnZ)))
     check(_only(main_counts, "launch.chi2_from_orbit_tab")
@@ -1116,6 +1141,9 @@ def phase_slice(torch, chi2_core, tr, workdir):
           f"the main path must launch only the tab kernel, once per row: "
           f"{main_counts}")
     check(len(lnZ) == 21, f"{len(lnZ)} rows, expected 21")
+    check(main_samplers == _branches(len(lnZ)),
+          f"the main path must launch one sampler kernel a branch, "
+          f"{_branches(len(lnZ))}: {main_samplers}")
     check(np.isfinite(lnZ).all(), f"non-finite lnZ {lnZ}")
     check(abs(probs.sum() - 1.0) < 1e-6, f"probabilities sum {probs.sum()}")
     check(0.0 <= t.FPP <= 1.0 and 0.0 <= t.NFPP <= 1.0,
@@ -1288,7 +1316,7 @@ def phase_slice(torch, chi2_core, tr, workdir):
         chi2_from_orbit_v3=v3_exact_counts["launch.chi2_from_orbit_v3"],
         chi2_from_orbit_tab=main_counts["launch.chi2_from_orbit_tab"],
         chi2_from_orbit_v3_tab=v3_counts["launch.chi2_from_orbit_v3_tab"])
-    return launches, run, t, med
+    return launches, run, t, med, main_samplers
 
 
 def phase_long(chi2_core, t):
@@ -1601,7 +1629,8 @@ def _batch_rank(rank, store, entries, out_dir):
         wall = time.perf_counter() - t0
         np.savez(os.path.join(out_dir, f"gloo_rank{rank}.npz"), fpp=fpp,
                  nfpp=nfpp, lnZ=lnZ, wall=wall,
-                 launches=json.dumps(_counts(chi2_core)))
+                 launches=json.dumps(_counts(chi2_core)),
+                 samplers=json.dumps(_sampler_launches(chi2_core)))
     finally:
         dist.destroy_process_group()
 
@@ -1613,7 +1642,9 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     (BATCH_RP, BATCH_P) through tools/catalog_replay.build_target. Each
     run must launch the tab kernel exactly once per computed row of the
     batch (15 plus 3 per nearby-star slot: one family program per row over
-    all the targets) and nothing else. Returns the warm run's launches."""
+    all the targets) and nothing else, and one sampler kernel per branch
+    each target samples (``_branches`` of its computed rows). Returns the
+    warm run's tab-kernel and sampler launches."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from triceratops_tpu_torch.ops import lightcurve
@@ -1634,18 +1665,25 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     expected = 15 + 3 * max(len(e["nearby"]) for e in entries)
     kw = dict(N=N_DRAWS, n_t=n_t, ns=NSAMPLES, has_cc=has_cc, device="cuda")
 
+    rows_computed = sum(15 + 3 * len(e["nearby"]) for e in entries)
+    branches = _branches(rows_computed)
+
     def timed(mesh, b=batch):
         _reset(chi2_core)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = sharding.batch_fpp_full(mesh, b, **kw)
-        return out, time.perf_counter() - t0, _counts(chi2_core)
+        return (out, time.perf_counter() - t0,
+                (_counts(chi2_core), _sampler_launches(chi2_core)))
 
     def launches_ok(c, what):
+        c, s = c
         check(_only(c, "launch.chi2_from_orbit_tab")
               and c["launch.chi2_from_orbit_tab"] == expected,
               f"{what}: expected {expected} tab-kernel launches only, got "
               f"{c}")
+        check(s == branches, f"{what}: expected sampler launches "
+              f"{branches}, got {s}")
 
     cold, wall_cold, c_cold = timed(None)
     torch.cuda.reset_peak_memory_stats()
@@ -1669,8 +1707,9 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
           f"mesh=None: cold {wall_cold:.4f} s, warm {wall_warm:.4f} s = "
           f"{wall_warm / N_BATCH:.4f} s/target (phase 6 warm median "
           f"{warm_median:.4f} s per 21-row call); "
-          f"{c_warm['launch.chi2_from_orbit_tab']} tab-kernel launches per call "
-          f"(expected {expected}); peak device "
+          f"{c_warm[0]['launch.chi2_from_orbit_tab']} tab-kernel launches "
+          f"per call (expected {expected}), sampler launches {c_warm[1]} "
+          f"({rows_computed} rows computed); peak device "
           f"memory {peak_gib:.3f} GiB (DRAW_CAP 2^"
           f"{lightcurve.DRAW_CAP.bit_length() - 1}); cold vs warm max "
           f"|d lnZ| {rerun:.3g}")
@@ -1680,12 +1719,13 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     walls, worst = [], 0.0
     for i, e in enumerate(entries):
         one, _, _ = sharding.prepare_target_batch([e], device="cuda")
-        (_, _, lnZ1), wall, c = timed(None, one)
+        (_, _, lnZ1), wall, (c, s) = timed(None, one)
         walls.append(wall)
         rows_i = 15 + 3 * len(e["nearby"])
         check(_only(c, "launch.chi2_from_orbit_tab")
-              and c["launch.chi2_from_orbit_tab"] == rows_i,
-              f"phase 10 (i) target {i} alone: {c}")
+              and c["launch.chi2_from_orbit_tab"] == rows_i
+              and s == _branches(rows_i),
+              f"phase 10 (i) target {i} alone: {c}, sampler launches {s}")
         n = lnZ1.shape[1]
         check(np.array_equal(np.isneginf(lnZ1[0]), np.isneginf(lnZ[i, :n])),
               f"phase 10 (i) target {i}: -inf rows differ alone")
@@ -1743,7 +1783,8 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     ranks = [np.load(os.path.join(workdir, f"gloo_rank{r}.npz"))
              for r in range(2)]
     for r in ranks:
-        launches_ok(json.loads(str(r["launches"])), "phase 10 (iii) rank")
+        launches_ok((json.loads(str(r["launches"])),
+                     json.loads(str(r["samplers"]))), "phase 10 (iii) rank")
     check(all(np.array_equal(ranks[0][k], ranks[1][k])
               for k in ("fpp", "nfpp", "lnZ")),
           "the two gloo ranks returned different batches")
@@ -1761,7 +1802,7 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
           f"{expected} tab-kernel launches; per-row lnZ within the "
           f"statistical rule of (i), largest |d| within 5 nats of the winner "
           f"{worst:.3g}")
-    return c_warm["launch.chi2_from_orbit_tab"]
+    return c_warm[0]["launch.chi2_from_orbit_tab"], c_warm[1]
 
 
 def phase_parity():
@@ -1872,37 +1913,268 @@ def phase_profile(torch, run, backends=("auto", "torch")):
                   f"calls, {e.self_cpu_time_total / 1e3:.1f} ms self")
 
 
-def main():
-    try:
-        import torch
-        import triceratops_tpu_torch.triceratops as tr
-        from triceratops_tpu_torch.ops import chi2_core
-    except ImportError as e:
-        print(f"chip_smoke: cannot import the port ({e}); run it from the "
-              "repository root", file=sys.stderr)
-        return 2
-    try:
-        phase_device(torch)
-        build_s = phase_build(chi2_core)
-        phase_tf32_coeffs(torch)
-        timing = phase_kernel(torch, chi2_core)
-        timing["targets"] = phase_kernel_targets(torch, chi2_core,
-                                                 timing["slice"])
-        with tempfile.TemporaryDirectory() as workdir:
-            launches, run, t, med = phase_slice(torch, chi2_core, tr,
-                                                workdir)
-            phase_long(chi2_core, t)
-            phase_dormant(torch, chi2_core, workdir)
-            phase_ensemble(chi2_core, t)
-            phase_likelihoods(torch)
-            launches["chi2_from_orbit_tab"] = phase_batch(
-                torch, chi2_core, t, workdir, med)
-            phase_parity()
-            if "--profile" in sys.argv[1:]:
-                phase_profile(torch, run)
-    except SmokeFailure as e:
-        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
-        return 1
+# sampler phase: draws a branch (the main path's 1e6 rounded up to the
+# draw tile, as lightcurve.orbit_chunk takes it), and the host stars the
+# cases take, one on each branch of the mass-ratio laws (M_s >= 1,
+# 0.3 <= M_s < 1 with periods above 10 d, 0.1 < M_s < 0.3 with one period
+# as the batch path draws it, M_s <= 0.1)
+N_SAMPLER = 1_000_192
+SAMPLER_STARS = (
+    dict(P_lo=2.0, P_hi=4.0, M_s=1.2, R_s=1.1, Teff=6100.0, plx=9.0),
+    dict(P_lo=12.0, P_hi=20.0, M_s=0.6, R_s=0.6, Teff=4100.0, plx=21.0),
+    dict(P_lo=1.3, P_hi=1.3, M_s=0.2, R_s=0.24, Teff=3200.0, plx=40.0),
+    dict(P_lo=5.0, P_hi=6.0, M_s=0.09, R_s=0.12, Teff=2900.0, plx=60.0),
+)
+# (label, sampler, options): every branch of every sampler the rows run,
+# MOLUSC rows and the companion law, with and without the conditioned twin
+# draws, a TRILEGAL host and a diluting row, with and without a contrast
+# curve; N // 4 twin draws (N // 2 for SEB), as api._twin_n
+SAMPLER_VARIANTS = (
+    ("TP", "sample_planet_target", dict(stratified=True)),
+    ("TP.plain_inc", "sample_planet_target", dict(stratified=False)),
+    ("EB", "sample_teb", dict(twin=4)),
+    ("EB.shared", "sample_teb", dict(twin=0)),
+    ("EB.plain_inc", "sample_teb", dict(twin=4, stratified=False)),
+    ("PTP.molusc", "sample_ptp", dict(molusc=True)),
+    ("PTP.law", "sample_ptp", dict(molusc=False)),
+    ("PTP.law.cc", "sample_ptp", dict(molusc=False, cc=True)),
+    ("STP.molusc", "sample_stp", dict(molusc=True)),
+    ("STP.law", "sample_stp", dict(molusc=False, cc=True)),
+    ("PEB.molusc", "sample_peb", dict(molusc=True, twin=4)),
+    ("PEB.law", "sample_peb", dict(molusc=False, twin=4)),
+    ("PEB.molusc.shared", "sample_peb", dict(molusc=True, twin=0)),
+    ("PEB.law.shared", "sample_peb", dict(molusc=False, twin=0, cc=True)),
+    ("SEB.molusc", "sample_seb", dict(molusc=True, twin=2)),
+    ("SEB.law", "sample_seb", dict(molusc=False, twin=2)),
+    ("SEB.molusc.shared", "sample_seb", dict(molusc=True, twin=0)),
+    ("SEB.law.shared", "sample_seb", dict(molusc=False, twin=0, cc=True)),
+    ("DTP", "sample_background_planet", dict(on_bg=False)),
+    ("DTP.cc", "sample_background_planet", dict(on_bg=False, cc=True)),
+    ("BTP", "sample_background_planet", dict(on_bg=True)),
+    ("BTP.cc", "sample_background_planet", dict(on_bg=True, cc=True)),
+    ("DEB", "sample_background_eb", dict(on_bg=False, twin=4)),
+    ("DEB.shared.cc", "sample_background_eb",
+     dict(on_bg=False, twin=0, cc=True)),
+    ("BEB", "sample_background_eb", dict(on_bg=True, twin=4)),
+    ("BEB.cc", "sample_background_eb", dict(on_bg=True, twin=4, cc=True)),
+    ("BEB.shared", "sample_background_eb", dict(on_bg=True, twin=0)),
+)
+
+
+def sampler_inputs(torch, N, device, seed=0):
+    """The cases' shared inputs on ``device``: MOLUSC mass ratios with
+    half zero padding, a 400-row TRILEGAL pack (packs.BG_PACK_FIELDS
+    order), the nearest-Z LDC grids to 10000 K (STP) and 13000 K (SEB), a
+    contrast curve and the defaults without one."""
+    from triceratops_tpu_torch.populations.ldc import grid_at_Z
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, f32), device=device)
+
+    n = 400
+    fr = rng.uniform(1e-3, 0.9, n)
+    fr_cc = np.clip(fr * rng.uniform(0.5, 1.5, n), 1e-3, 0.95)
+    pack = np.stack([fr, -2.5 * np.log10(fr / (1 - fr)),
+                     rng.uniform(0.1, 2.5, n), rng.uniform(0.1, 3.0, n),
+                     rng.uniform(3.0, 5.2, n), rng.uniform(2800, 12000, n),
+                     rng.uniform(0.2, 0.5, n), rng.uniform(0.1, 0.3, n),
+                     fr_cc], axis=1)
+    qs = np.where(rng.random(N) < 0.5, rng.uniform(0.02, 1.0, N), 0.0)
+    return dict(qs=dev(qs), bg={"pack": dev(pack)},
+                ldc10=tuple(dev(t) for t in grid_at_Z(0.0, "TESS", 10000)),
+                ldc13=tuple(dev(t) for t in grid_at_Z(0.0, "TESS", 13000)),
+                cc=(dev([0.1, 0.2, 0.5, 1.0, 2.0, 3.0]),
+                    dev([1.5, 3.0, 5.0, 6.5, 7.5, 8.0]), "J"),
+                no_cc=(dev([2.2]), dev([1.0]), None))
+
+
+def sampler_case(eng, inputs, variant, star, N):
+    """(sampler, args, kwargs, launches by entry) of one variant at one of
+    SAMPLER_STARS."""
+    _, name, o = variant
+    st = SAMPLER_STARS[star]
+    f32 = np.float32
+    P_lo, P_hi = st["P_lo"], st["P_hi"]
+    M_s, R_s, Teff, plx = (f32(st[k]) for k in ("M_s", "R_s", "Teff", "plx"))
+    seps, cons, cc_filt = inputs["cc" if o.get("cc") else "no_cc"]
+    strat = o.get("stratified", True)
+    div = o.get("twin", 0)
+    kw = dict(N=N, stratified=strat)
+    if name in ("sample_teb", "sample_peb", "sample_seb",
+                "sample_background_eb"):
+        kw["twin_n"] = N // div if div else 0
+        launches = ({"eb": 1, "twin": 1} if div and strat else {"eb": 1})
+    else:
+        kw["flatpriors"] = False
+        launches = {"planet": 1}
+    comp = dict(use_molusc=o.get("molusc", False), cc_filt=cc_filt)
+    qs = inputs["qs"]
+    if name == "sample_planet_target":
+        args = (P_lo, P_hi, M_s, R_s)
+    elif name == "sample_teb":
+        args = (P_lo, P_hi, M_s, R_s, Teff)
+    elif name in ("sample_ptp", "sample_peb"):
+        args = (P_lo, P_hi, M_s, R_s, Teff, plx, qs, seps, cons)
+        kw.update(comp)
+    elif name in ("sample_stp", "sample_seb"):
+        u1_tab, u2_tab = inputs["ldc10" if name == "sample_stp" else "ldc13"]
+        args = (P_lo, P_hi, M_s, R_s, Teff, plx, qs, u1_tab, u2_tab, seps,
+                cons)
+        kw.update(comp)
+    else:
+        base = (P_lo, P_hi, M_s, R_s)
+        if name == "sample_background_eb":
+            base += (Teff,)
+            kw["cc_filt"] = cc_filt or "TESS"
+        args = base + (inputs["bg"], seps, cons)
+        kw.update(has_cc=cc_filt is not None, host_is_bg=o["on_bg"])
+    return getattr(eng, name), args, kw, launches
+
+
+def sampler_diffs(torch, want, got, path=""):
+    """{field: (draws that differ, largest gap in float32 ulps)} between
+    two sampler outputs (a twin dict under "twin."), NaN equal to NaN;
+    empty when every field and mask is the same bit for bit."""
+    out = {}
+    if set(want) != set(got):
+        out[path + "<keys>"] = (sorted(set(want) ^ set(got)), None)
+    for key in want.keys() & got.keys():
+        a, b = want[key], got[key]
+        if isinstance(a, dict):
+            out.update(sampler_diffs(torch, a, b, f"{path}{key}."))
+            continue
+        if (a.shape != b.shape or a.dtype != b.dtype):
+            out[path + key] = (f"{a.dtype}{tuple(a.shape)} vs "
+                               f"{b.dtype}{tuple(b.shape)}", None)
+            continue
+        if a.dtype != torch.float32:
+            n = int((a != b).sum())
+            if n:
+                out[path + key] = (n, None)
+            continue
+        ai = a.contiguous().view(torch.int32).long()
+        bi = b.contiguous().view(torch.int32).long()
+        same = (ai == bi) | (torch.isnan(a) & torch.isnan(b))
+        n = int((~same).sum())
+        if n:
+            out[path + key] = (n, int((ai - bi).abs()[~same].max()))
+    return out
+
+
+def sampler_bytes(torch, name, out):
+    """The least bytes a sampler's launches move: each branch's uniform
+    streams read (6 for the P* and S* samplers, else 5) and each distinct
+    float32 field and bool mask of its output written once (the lattice
+    permutations, drawn rows and tables not counted)."""
+    streams = 6 if name in ("sample_ptp", "sample_stp", "sample_peb",
+                            "sample_seb") else 5
+    seen, total = set(), 0
+    for br in [out] + ([out["twin"]] if "twin" in out else []):
+        if br["P"].data_ptr() not in seen:
+            total += 4 * streams * br["P"].numel()
+        for v in br.values():
+            if (torch.is_tensor(v) and v.dtype in (torch.float32, torch.bool)
+                    and v.data_ptr() not in seen):
+                seen.add(v.data_ptr())
+                total += v.numel() * v.element_size()
+    return total
+
+
+def sampler_counts(profiling):
+    return {k: v for k, v in profiling.counters().items()
+            if k.startswith("launch.sampler.")}
+
+
+def phase_samplers(torch):
+    """Phase samplers: each variant of SAMPLER_VARIANTS at the first host
+    star, N_SAMPLER draws, on the card: the sampler (its kernel launches)
+    against its plain chain (``<sampler>.plain``) on generators of one
+    seed, every field and mask bit for bit, and the launches of each entry
+    (one a branch). Times, by CUDA events: ``ms`` the kernels alone (each
+    launch of a call replayed on its recorded inputs by ``_median_ms``,
+    summed over the call's launches; ``kernel_ms`` by entry), held to
+    ``bound_ms`` (``sampler_bytes`` over PEAK_BYTES_S; operations not
+    counted); ``call_ms`` and ``plain_ms`` the whole sampler call on each
+    path (median of 3 calls: the kernel path's uniforms, lattice argsort,
+    periods and priors in torch besides its launches; the plain chain's
+    time its host dispatch)."""
+    from triceratops_tpu_torch.ops import sampler_kernels as sk
+    from triceratops_tpu_torch.scenarios import engine as eng
+    from triceratops_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    sk.build(verbose=True)
+    print(f"phase samplers: built the sampler library in "
+          f"{time.perf_counter() - t0:.2f} s")
+    inputs = sampler_inputs(torch, N_SAMPLER, "cuda")
+    rows = []
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def timed(fn, args, kw):
+        ms = []
+        for seed in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(gen(100 + seed), *args, **kw)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sorted(ms)[1]
+
+    def kernel_ms(fn, args, kw):
+        """{entry: ms} of one call's launches, each alone: the call's
+        sk.launch arguments recorded, then each launch replayed."""
+        calls, launch = [], sk.launch
+
+        def record(*a, **k):
+            calls.append((a, k))
+            return launch(*a, **k)
+
+        sk.launch = record
+        try:
+            fn(gen(100), *args, **kw)
+        finally:
+            sk.launch = launch
+        return {a[0]: round(_median_ms(torch, lambda: launch(*a, **k),
+                                       reps=10), 4) for a, k in calls}
+
+    for variant in SAMPLER_VARIANTS:
+        fn, args, kw, launches = sampler_case(eng, inputs, variant, 0,
+                                              N_SAMPLER)
+        want = fn.plain(gen(1), *args, **kw)
+        before = sampler_counts(profiling)
+        got = fn(gen(1), *args, **kw)
+        after = sampler_counts(profiling)
+        torch.cuda.synchronize()
+        rose = {k[len("launch.sampler."):]: v - before.get(k, 0)
+                for k, v in after.items() if v != before.get(k, 0)}
+        diffs = sampler_diffs(torch, want, got)
+        check(not diffs, f"phase samplers: {variant[0]} differs from its "
+              f"plain chain: {diffs}")
+        check(rose == launches, f"phase samplers: {variant[0]} launched "
+              f"{rose}, expected {launches}")
+        nbytes = sampler_bytes(torch, fn.__name__, got)
+        each = kernel_ms(fn, args, kw)
+        check(each.keys() == launches.keys(), f"phase samplers: "
+              f"{variant[0]} replayed {sorted(each)}, launched {launches}")
+        row = dict(variant=variant[0], launches=rose,
+                   ms=round(sum(each.values()), 4), kernel_ms=each,
+                   bound_ms=round(1e3 * nbytes / PEAK_BYTES_S, 4),
+                   bytes=nbytes, call_ms=round(timed(fn, args, kw), 4),
+                   plain_ms=round(timed(fn.plain, args, kw), 4))
+        rows.append(row)
+        print(f"phase samplers: {row}")
+    return rows
+
+
+def kernel_rows(timing, launches, build_s):
+    """The chi^2 kernels' rows of the ``kernels`` line."""
     # each kernel at the main path's shape (n_t = 100, GL-4): the plane
     # kernels at their old 16384-draw chunk, the orbit kernels at
     # orbit_chunk(1e6); no single PyTorch call computes this function, so
@@ -1943,7 +2215,50 @@ def main():
             row[f"ms_b{N_BATCH}"] = timing["targets"][name]["ms"]
             row[f"bound_ms_b{N_BATCH}"] = timing["targets"][name]["bound_ms"]
         kernels.append(row)
-    print(json.dumps({"kernels": kernels}))
+    return kernels
+
+
+def main():
+    try:
+        import torch
+        import triceratops_tpu_torch.triceratops as tr
+        from triceratops_tpu_torch.ops import chi2_core
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port ({e}); run it from the "
+              "repository root", file=sys.stderr)
+        return 2
+    # each JSON line is printed as soon as the phases it reads have passed,
+    # so a later phase's failure leaves it in the output
+    try:
+        phase_device(torch)
+        build_s = phase_build(chi2_core)
+        print(json.dumps({"samplers": phase_samplers(torch)}))
+        phase_tf32_coeffs(torch)
+        timing = phase_kernel(torch, chi2_core)
+        timing["targets"] = phase_kernel_targets(torch, chi2_core,
+                                                 timing["slice"])
+        with tempfile.TemporaryDirectory() as workdir:
+            launches, run, t, med, calc_samplers = phase_slice(
+                torch, chi2_core, tr, workdir)
+            phase_long(chi2_core, t)
+            phase_dormant(torch, chi2_core, workdir)
+            phase_ensemble(chi2_core, t)
+            phase_likelihoods(torch)
+            launches["chi2_from_orbit_tab"], batch_samplers = phase_batch(
+                torch, chi2_core, t, workdir, med)
+            print(json.dumps({"kernels": kernel_rows(timing, launches,
+                                                     build_s)}))
+            # the sampler kernels' launches on the main path: phase 4's
+            # 21-row calc_probs call and phase 10's warm batch call
+            print(json.dumps({"sampler_launches": {
+                "calc_probs": calc_samplers, f"batch_b{N_BATCH}":
+                batch_samplers}}))
+            phase_parity()
+            if "--profile" in sys.argv[1:]:
+                phase_profile(torch, run)
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -60,10 +60,7 @@ through; ``build.chi2`` counts the library's nvcc builds.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
 from functools import lru_cache
 from pathlib import Path
 
@@ -77,6 +74,7 @@ from .fastcore import (
     cheb_deficit_coeffs, cheb_deficit_coeffs_tab, cheb_deficit_eval,
     exposure_z2_poly,
 )
+from .nvcc import build_library, library_file
 from .occult import _N_GL_F32, _gl_tables
 
 DRAW_TILE = 256     # v2: C % DRAW_TILE == 0
@@ -102,12 +100,7 @@ WIN_REL_M = 1e-6
 WIN_MIN_ARC = 1e-3
 WIN_WHOLE = 4.0
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("chi2_supersampled.cu",)
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-prec-sqrt=true", "-prec-div=true", "-ftz=false")
 
 _lib = None
 
@@ -161,39 +154,16 @@ def _exact_consts():
                        _BREAK_FLOOR)
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
 def library_path() -> Path:
     """Shared library path, keyed by a hash of the sources and flags so an
     edited ``.cu`` file is rebuilt."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    return _BUILD_DIR / f"libchi2_{h.hexdigest()[:16]}.so"
+    return library_file("chi2", _SOURCES)
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernel library if it is not built yet; returns its path.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    so = library_path()
-    if so.exists() and not verbose:
-        return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(_CSRC / n) for n in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    profiling.count("build.chi2")
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, so)
-    return so
+    """Compile the chi^2 kernel library if it is not built yet; returns its
+    path (``build_library``, counted under ``build.chi2``)."""
+    return build_library("chi2", _SOURCES, verbose)
 
 
 def _load():

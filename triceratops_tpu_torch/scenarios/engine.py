@@ -23,6 +23,17 @@ and every drawn star or MOLUSC-row index through another,
 ``_randint(gen, n, hi)``, so tests can hand the port and the JAX package
 the same numbers.
 
+Each sampler of a target-star or nearby-star row routes by its
+generator's device (``_routed``): a CUDA generator runs its card path,
+which keeps the same uniform and index draws, in the same order, and the
+periods, their mean, the lattice's argsort and the priors in torch, and
+hands the rest of each branch to one launch of ``ops/sampler_kernels.py``
+(``csrc/samplers.cu``), whose fields equal the plain chain's bit for bit;
+a CPU generator runs the plain torch chain, reachable on any device as
+``<sampler>.plain``. The dormant samplers (``sample_ntp_unknown``,
+``sample_neb_unknown``, ``sample_neb_evolved``) run their plain chain
+everywhere.
+
 Each sampler runs in the span ``tri.sample.<name>`` (``sample_ptp`` in
 ``tri.sample.ptp``), each bound-companion prior block of the P* and S*
 samplers (companion law, no MOLUSC file) in ``tri.prior.companion`` with
@@ -32,8 +43,10 @@ its draws counted under ``prior.companion``, and ``run_finalize`` in
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from ..constants import G, MSUN, RSUN, REARTH, PI
@@ -47,8 +60,10 @@ from ..priors.companion import (
     clamp_companion_prior,
 )
 from ..populations.ldc import round_index_comp
+from ..populations.packs import BG_PACK_FIELDS, POP_PACK_FIELDS
 from ..populations.stellar import stellar_relations, flux_relation
 from ..ops.lightcurve import eb_radius_ratios, eb_dilution, tp_dilution
+from ..ops import sampler_kernels as sk
 from ..utils import profiling
 
 F32 = torch.float32
@@ -85,6 +100,29 @@ def _scalars(device, *xs):
 
 def _draw_P(u, P_lo, P_hi):
     return P_lo + u * (P_hi - P_lo)
+
+
+def _draw_P_card(u, P_lo, P_hi):
+    """``_draw_P`` on the float32 P_lo and P_hi of ``_scalars`` without
+    uploading them: P_hi - P_lo is the float32 difference, and a Python
+    float that is a float32 value enters the tensor ops exactly."""
+    lo, hi = sk.by_value(P_lo, P_hi)
+    return lo + u * float(np.float32(hi) - np.float32(lo))
+
+
+def _routed(card):
+    """A sampler whose CUDA generator runs ``card`` (module docstring) and
+    whose CPU generator runs the plain chain it decorates; the plain chain
+    stays reachable as ``.plain``."""
+    def deco(plain):
+        @functools.wraps(plain)
+        def sampler(gen, *args, **kwargs):
+            if gen.device.type == "cuda":
+                return card(gen, *args, **kwargs)
+            return plain(gen, *args, **kwargs)
+        sampler.plain = plain
+        return sampler
+    return deco
 
 
 def _semimajor(P_days, M_tot_msun):
@@ -156,6 +194,55 @@ def _companion_prior_bound(kind, M_s, plx, masses_comp, fluxratios_comp,
         return clamp_companion_prior(lnp, delta_mags)
 
 
+def _companion_lnprior(use_molusc, kind, M_s, plx, masses_comp,
+                       fluxratios_comp, cc_filt, seps, cons):
+    """A PTP / STP / PEB branch's log-prior: zero with MOLUSC rows, else
+    ``_companion_prior_bound``."""
+    if use_molusc:
+        return torch.zeros_like(fluxratios_comp)
+    return _companion_prior_bound(kind, M_s, plx, masses_comp,
+                                  fluxratios_comp, cc_filt, seps, cons)
+
+
+def _seb_prior_bound(M_s, plx, masses_comp, fluxratios_comp, masses,
+                     fluxratios, cc_filt, seps, cons):
+    """SEB's bound-companion prior block: its delta-mag combines the
+    companion and its EB (ml.py:1200-1235); the span and counter of
+    ``_companion_prior_bound``."""
+    with profiling.span("tri.prior.companion"):
+        profiling.count("prior.companion", masses_comp.shape[0])
+        if cc_filt is None:
+            fr_c, fr_e = fluxratios_comp, fluxratios
+        else:
+            fr_c = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
+            fr_e = _fluxratio_vs_target(masses, M_s, cc_filt)
+        delta_mags = 2.5 * torch.log10(fr_c / (1.0 - fr_c)
+                                       + fr_e / (1.0 - fr_e))
+        lnp = lnprior_bound_EB(M_s, plx, torch.abs(delta_mags), seps, cons)
+        return clamp_companion_prior(lnp, delta_mags)
+
+
+def _beb_prior(has_cc, N_comp, M_s, host_mass, masses, fluxratios,
+               fluxratios_draw, fluxratios_cc, cc_filt, seps, cons):
+    """BEB's prior: it combines the background star and its EB; with a
+    contrast curve both take the curve band's distance correction
+    (ml.py:2160-2209)."""
+    if has_cc:
+        fr_bound_cc = _fluxratio_vs_target(host_mass, M_s, cc_filt)
+        fr_eb_cc = (_fluxratio_vs_target(masses, M_s, cc_filt)
+                    * (fluxratios_cc / fr_bound_cc))
+        delta_mags = 2.5 * torch.log10(fluxratios_cc / (1.0 - fluxratios_cc)
+                                       + fr_eb_cc / (1.0 - fr_eb_cc))
+        lnp = lnprior_background(N_comp, torch.abs(delta_mags), seps, cons)
+    else:
+        F_comp = fluxratios_draw / (1.0 - fluxratios_draw)
+        delta_mags = 2.5 * torch.log10(F_comp
+                                       + fluxratios / (1.0 - fluxratios))
+        lnp = (torch.zeros_like(delta_mags)
+               + math.log((N_comp / 0.1) * (1.0 / 3600.0) ** 2 * 2.2**2))
+    return clamp_companion_prior(lnp, delta_mags)
+
+
 def _background_prior(has_cc, N_comp, fluxratios_draw, delta_band_draw,
                       seps, cons):
     """Background-star prior block of DTP / DEB / BTP (reference
@@ -169,14 +256,6 @@ def _background_prior(has_cc, N_comp, fluxratios_draw, delta_band_draw,
         delta_mags = delta_band_draw
         lnp = lnprior_background(N_comp, torch.abs(delta_mags), seps, cons)
     return clamp_companion_prior(lnp, delta_mags)
-
-
-# field order of the packed background table: one (N_rows, F) float32
-# matrix, gathered once per draw batch
-BG_PACK_FIELDS = ("fluxratios", "delta_band", "masses", "radii", "loggs",
-                  "teffs", "u1s", "u2s", "fluxratios_cc")
-# field order of the packed Tmag +/- 1 lookalike table
-POP_PACK_FIELDS = ("masses", "radii", "loggs", "teffs", "u1s", "u2s")
 
 
 def _drawn_rows(tab, idxs, fields):
@@ -208,10 +287,219 @@ def run_finalize(lnL, lnprior, gather: dict):
 
 
 # ---------------------------------------------------------------------------
+# Card paths: one sampler-kernel launch a branch (ops/sampler_kernels.py)
+# ---------------------------------------------------------------------------
+
+# the fields each branch returns, as the plain chain names them
+_PLANET_KEYS = ("P", "rps", "incs", "eccs", "argps", "a", "b", "mask", "lnw",
+                "inc_rad", "w_rad", "k", "a_R")
+_EB_KEYS = ("incs", "qs", "eccs", "argps", "masses", "radii", "fluxratios",
+            "a", "b", "mask", "lnw", "inc_rad", "w_rad", "k", "ksec", "g_pri",
+            "g_sec", "a_R")
+_SHARED_TWIN_KEYS = ("incs_twin", "a_twin", "b_twin", "mask_twin",
+                     "lnw_twin", "inc_rad_twin", "a_R_twin")
+# where M_s and plx sit in the scalars a launch writes back: their 0-d
+# views are the float32 tensors _scalars would upload, for the priors
+_M_S, _PLX = sk.SCALARS.index("M_s"), sk.SCALARS.index("plx")
+
+
+def _eb_branch_card(gen, entry, star, scalars, n, names, *, lattice,
+                    draw_rows=None, **kw):
+    """One EB branch on the card: (fields with P, scal, drawn rows). Its
+    uniform streams (6 for stars P and S, else 5), lattice permutations
+    and drawn rows (``draw_rows(gen, n)``) come in the plain chain's
+    order; its periods and their mean are torch's; the kernel does the
+    rest."""
+    u = _uniforms(gen, 6 if star in "PS" else 5, n)
+    perm = _lattice_perms(gen, len(u) - 2, n) if lattice else None
+    idx = None if draw_rows is None else draw_rows(gen, n)
+    P = _draw_P_card(u[0], scalars[0], scalars[1])
+    f, scal = sk.launch(entry, star, n, u, scalars, names, P=P,
+                        P_mean=P.mean(), perm=perm, idx=idx, **kw)
+    return {"P": P, **f}, scal, idx
+
+
+def _planet_target_card(gen, P_lo, P_hi, M_s, R_s, *, N, flatpriors,
+                        stratified=True):
+    f, _ = sk.launch("planet", "T", N, _uniforms(gen, 5, N),
+                     (P_lo, P_hi, M_s, R_s), _PLANET_KEYS,
+                     flatpriors=flatpriors, stratified=stratified)
+    return f
+
+
+def _ptp_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
+              *, N, flatpriors, use_molusc, cc_filt, stratified=True):
+    names = (_PLANET_KEYS + ("g", "fluxratios_comp")
+             + (() if use_molusc else ("masses_comp",)))
+    f, scal = sk.launch("planet", "P", N, _uniforms(gen, 6, N),
+                        (P_lo, P_hi, M_s, R_s, Teff, plx), names,
+                        qs_in=qs_comp_in if use_molusc else None,
+                        flatpriors=flatpriors, stratified=stratified,
+                        use_molusc=use_molusc)
+    f["lnprior"] = _companion_lnprior(
+        use_molusc, "TP", scal[_M_S], scal[_PLX], f.pop("masses_comp", None),
+        f["fluxratios_comp"], cc_filt, seps, cons)
+    return f
+
+
+def _stp_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
+              u2_tab, seps, cons, *, N, flatpriors, use_molusc, cc_filt,
+              stratified=True):
+    names = _PLANET_KEYS + ("g", "fluxratios_comp", "masses_comp",
+                            "radii_comp", "u1s", "u2s")
+    f, scal = sk.launch("planet", "S", N, _uniforms(gen, 6, N),
+                        (P_lo, P_hi, M_s, R_s, Teff, plx), names,
+                        qs_in=qs_comp_in if use_molusc else None,
+                        ldc=(u1_tab, u2_tab), flatpriors=flatpriors,
+                        stratified=stratified, use_molusc=use_molusc)
+    f["lnprior"] = _companion_lnprior(
+        use_molusc, "TP", scal[_M_S], scal[_PLX], f["masses_comp"],
+        f["fluxratios_comp"], cc_filt, seps, cons)
+    return f
+
+
+def _background_planet_card(gen, P_lo, P_hi, M_s, R_s, bg, seps, cons, *, N,
+                            flatpriors, has_cc, host_is_bg, stratified=True):
+    u = _uniforms(gen, 5, N)
+    idxs, N_comp = _background_idxs(gen, bg, N, host_is_bg)
+    names = (_PLANET_KEYS + ("g", "fluxratios_comp", "host_mass", "host_rad")
+             + (("u1s", "u2s") if host_is_bg else ())
+             + (("delta_band",) if has_cc else ()))
+    f, _ = sk.launch("planet", "B" if host_is_bg else "D", N, u,
+                     (P_lo, P_hi, M_s, R_s), names, idx=idxs,
+                     pack=bg["pack"], flatpriors=flatpriors,
+                     stratified=stratified)
+    f["lnprior"] = _background_prior(has_cc, N_comp, f["fluxratios_comp"],
+                                     f.pop("delta_band", None), seps, cons)
+    f["idxs"] = idxs
+    return f
+
+
+def _teb_card(gen, P_lo, P_hi, M_s, R_s, Teff, *, N, stratified=True,
+              twin_n=0):
+    star = (P_lo, P_hi, M_s, R_s, Teff)
+    split = bool(stratified and twin_n)
+    d, _, _ = _eb_branch_card(
+        gen, "eb", "T", star, N,
+        _EB_KEYS + (() if split else _SHARED_TWIN_KEYS), lattice=False,
+        stratified=stratified, shared_twin=not split)
+    if split:
+        t, _, _ = _eb_branch_card(gen, "twin", "T", star, twin_n, _EB_KEYS,
+                                  lattice=True)
+        t["lnprior"] = torch.zeros_like(t["P"])
+        d["twin"] = t
+    else:
+        d["twin"] = _twin_alias(d)
+    return d
+
+
+def _bound_eb_card(star, gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
+                   ldc, seps, cons, N, use_molusc, cc_filt, stratified,
+                   twin_n):
+    """PEB (star P) and SEB (star S) on the card."""
+    scalars = (P_lo, P_hi, M_s, R_s, Teff, plx)
+    split = bool(stratified and twin_n)
+    comp = ("fluxratios_comp", "masses_comp") + (
+        ("radii_comp", "u1s", "u2s") if star == "S" else ())
+    kw = dict(qs_in=qs_comp_in if use_molusc else None, ldc=ldc,
+              use_molusc=use_molusc)
+
+    def lnprior(f, scal):
+        if star == "P":
+            return _companion_lnprior(
+                use_molusc, "EB", scal[_M_S], scal[_PLX],
+                f.pop("masses_comp"), f["fluxratios_comp"], cc_filt, seps,
+                cons)
+        if use_molusc:
+            return torch.zeros_like(f["P"])
+        return _seb_prior_bound(scal[_M_S], scal[_PLX], f["masses_comp"],
+                                f["fluxratios_comp"], f["masses"],
+                                f["fluxratios"], cc_filt, seps, cons)
+
+    d, scal, _ = _eb_branch_card(
+        gen, "eb", star, scalars, N,
+        _EB_KEYS + (() if split else _SHARED_TWIN_KEYS) + comp,
+        lattice=stratified, stratified=stratified, shared_twin=not split,
+        **kw)
+    d["lnprior"] = lnprior(d, scal)
+    if not split:
+        d["twin"] = _twin_alias(d)
+        return d
+    rows = None
+    if use_molusc:
+        def rows(g, n):
+            return _randint(g, n, qs_comp_in.shape[0])
+    t, scal, _ = _eb_branch_card(gen, "twin", star, scalars, twin_n,
+                                 _EB_KEYS + comp, lattice=True,
+                                 draw_rows=rows, **kw)
+    t["lnprior"] = lnprior(t, scal)
+    d["twin"] = t
+    return d
+
+
+def _peb_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
+              *, N, use_molusc, cc_filt, stratified=True, twin_n=0):
+    return _bound_eb_card("P", gen, P_lo, P_hi, M_s, R_s, Teff, plx,
+                          qs_comp_in, None, seps, cons, N, use_molusc,
+                          cc_filt, stratified, twin_n)
+
+
+def _seb_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
+              u2_tab, seps, cons, *, N, use_molusc, cc_filt, stratified=True,
+              twin_n=0):
+    return _bound_eb_card("S", gen, P_lo, P_hi, M_s, R_s, Teff, plx,
+                          qs_comp_in, (u1_tab, u2_tab), seps, cons, N,
+                          use_molusc, cc_filt, stratified, twin_n)
+
+
+def _background_eb_card(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, *,
+                        N, has_cc, host_is_bg, cc_filt="TESS",
+                        stratified=True, twin_n=0):
+    scalars = (P_lo, P_hi, M_s, R_s, Teff)
+    split = bool(stratified and twin_n)
+    star = "B" if host_is_bg else "D"
+    N_comp = bg["pack"].shape[0]
+    extra = (("fluxratios_comp", "host_mass", "host_rad")
+             + (("u1s", "u2s") if host_is_bg else ()))
+    if has_cc:
+        extra += ("fluxratios_cc",) if host_is_bg else ("delta_band",)
+
+    def rows(g, n):
+        return _background_idxs(g, bg, n, host_is_bg)[0]
+
+    def lnprior(f, scal):
+        if host_is_bg:
+            return _beb_prior(has_cc, N_comp, scal[_M_S], f["host_mass"],
+                              f["masses"], f["fluxratios"],
+                              f["fluxratios_comp"],
+                              f.pop("fluxratios_cc", None), cc_filt, seps,
+                              cons)
+        return _background_prior(has_cc, N_comp, f["fluxratios_comp"],
+                                 f.pop("delta_band", None), seps, cons)
+
+    d, scal, idxs = _eb_branch_card(
+        gen, "eb", star, scalars, N,
+        _EB_KEYS + (() if split else _SHARED_TWIN_KEYS) + extra,
+        lattice=False, draw_rows=rows, pack=bg["pack"],
+        stratified=stratified, shared_twin=not split)
+    d["lnprior"], d["idxs"] = lnprior(d, scal), idxs
+    if not split:
+        d["twin"] = _twin_alias(d)
+        return d
+    t, scal, idxs = _eb_branch_card(gen, "twin", star, scalars, twin_n,
+                                    _EB_KEYS + extra, lattice=True,
+                                    draw_rows=rows, pack=bg["pack"])
+    t["lnprior"], t["idxs"] = lnprior(t, scal), idxs
+    d["twin"] = t
+    return d
+
+
+# ---------------------------------------------------------------------------
 # Planet-family sampler
 # ---------------------------------------------------------------------------
 
 @profiling.span("tri.sample.planet_target")
+@_routed(_planet_target_card)
 def sample_planet_target(gen, P_lo, P_hi, M_s, R_s, *, N, flatpriors,
                          stratified=True):
     """Draws for TTP / NTP: a planet around a star with fixed properties
@@ -244,6 +532,7 @@ def _companion_qs(gen, u, M_s, qs_comp_in, n, use_molusc, twin=False):
 
 
 @profiling.span("tri.sample.ptp")
+@_routed(_ptp_card)
 def sample_ptp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
                *, N, flatpriors, use_molusc, cc_filt, stratified=True):
     """PTP: a planet around the target plus an unresolved bound companion
@@ -254,11 +543,8 @@ def sample_ptp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
     qs_comp = _companion_qs(gen, u[5], M_s, qs_comp_in, N, use_molusc)
     masses_comp = qs_comp * M_s
     fluxratios_comp = _fluxratio_vs_target(masses_comp, M_s)
-    if use_molusc:
-        lnprior = torch.zeros_like(qs_comp)
-    else:
-        lnprior = _companion_prior_bound("TP", M_s, plx, masses_comp,
-                                         fluxratios_comp, cc_filt, seps, cons)
+    lnprior = _companion_lnprior(use_molusc, "TP", M_s, plx, masses_comp,
+                                 fluxratios_comp, cc_filt, seps, cons)
     P = _draw_P(u[0], P_lo, P_hi)
     rps = sample_rp(u[1], M_s.expand(N), flatpriors)
     eccs = sample_ecc(u[3], True, P.mean())
@@ -285,6 +571,7 @@ def _companion_ldc(masses_comp, radii_comp, teffs_comp, u1_tab, u2_tab):
 
 
 @profiling.span("tri.sample.stp")
+@_routed(_stp_card)
 def sample_stp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
                u1_tab, u2_tab, seps, cons, *, N, flatpriors, use_molusc,
                cc_filt, stratified=True):
@@ -300,11 +587,8 @@ def sample_stp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
     fluxratios_comp = _fluxratio_vs_target(masses_comp, M_s)
     u1s, u2s = _companion_ldc(masses_comp, radii_comp, teffs_comp, u1_tab,
                               u2_tab)
-    if use_molusc:
-        lnprior = torch.zeros_like(qs_comp)
-    else:
-        lnprior = _companion_prior_bound("TP", M_s, plx, masses_comp,
-                                         fluxratios_comp, cc_filt, seps, cons)
+    lnprior = _companion_lnprior(use_molusc, "TP", M_s, plx, masses_comp,
+                                 fluxratios_comp, cc_filt, seps, cons)
     P = _draw_P(u[0], P_lo, P_hi)
     rps = sample_rp(u[1], masses_comp, flatpriors)
     eccs = sample_ecc(u[3], True, P.mean())
@@ -324,14 +608,19 @@ def sample_stp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
                 radii_comp=radii_comp, u1s=u1s, u2s=u2s)
 
 
-def _draw_background(gen, bg, n, host_is_bg):
-    """(idxs, rows, N_comp): n TRILEGAL rows drawn per draw. The index
+def _background_idxs(gen, bg, n, host_is_bg):
+    """(idxs, N_comp): n TRILEGAL row indices drawn per draw. The index
     quirk is the reference's: DTP / DEB draw from [0, N_comp - 1) (the
     last star is never drawn, ml.py:1463), BTP / BEB from [0, N_comp)
     (ml.py:1926)."""
     N_comp = bg["pack"].shape[0]
     hi = N_comp if host_is_bg else max(N_comp - 1, 1)
-    idxs = _randint(gen, n, hi)
+    return _randint(gen, n, hi), N_comp
+
+
+def _draw_background(gen, bg, n, host_is_bg):
+    """(idxs, rows, N_comp): ``_background_idxs`` and the drawn rows."""
+    idxs, N_comp = _background_idxs(gen, bg, n, host_is_bg)
     return idxs, _drawn_rows(bg, idxs, BG_PACK_FIELDS), N_comp
 
 
@@ -342,6 +631,7 @@ def _host_is_bg_ok(row):
 
 
 @profiling.span("tri.sample.background_planet")
+@_routed(_background_planet_card)
 def sample_background_planet(gen, P_lo, P_hi, M_s, R_s, bg, seps, cons,
                              *, N, flatpriors, has_cc, host_is_bg,
                              stratified=True):
@@ -447,12 +737,18 @@ def _lattice_strat(u, axes, n, gen):
     out[axes[0]] = (base + out[axes[0]]) / n
     rest = axes[1:]
     if rest:
-        r = torch.stack(_uniforms(gen, len(rest), n))
-        # stable, as jnp.argsort: float32 uniforms tie a few times per 1e4
-        perms = torch.argsort(r, dim=1, stable=True)
+        perms = _lattice_perms(gen, len(rest), n)
         for j, ax in enumerate(rest):
             out[ax] = (perms[j].to(dt) + out[ax]) / n
     return out
+
+
+def _lattice_perms(gen, k, n):
+    """k uniform random permutations of range(n): ONE batched argsort of
+    k streams of iid uniforms (``_lattice_strat``'s)."""
+    r = torch.stack(_uniforms(gen, k, n))
+    # stable, as jnp.argsort: float32 uniforms tie a few times per 1e4
+    return torch.argsort(r, dim=1, stable=True)
 
 
 def _inc_twin_mixture(u_inc, Ptra):
@@ -629,6 +925,7 @@ def _teb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, n, twin):
 
 
 @profiling.span("tri.sample.teb")
+@_routed(_teb_card)
 def sample_teb(gen, P_lo, P_hi, M_s, R_s, Teff, *, N, stratified=True,
                twin_n=0):
     """TEB / NEB: the target (or a nearby star) is an eclipsing binary
@@ -682,11 +979,8 @@ def _peb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps,
     fluxratios = _fluxratio_vs_target(masses, M_s)
     masses_comp = qs_comp * M_s
     fluxratios_comp = _fluxratio_vs_target(masses_comp, M_s)
-    if use_molusc:
-        lnprior = torch.zeros_like(qs_comp)
-    else:
-        lnprior = _companion_prior_bound("EB", M_s, plx, masses_comp,
-                                         fluxratios_comp, cc_filt, seps, cons)
+    lnprior = _companion_lnprior(use_molusc, "EB", M_s, plx, masses_comp,
+                                 fluxratios_comp, cc_filt, seps, cons)
     kk, ksec = eb_radius_ratios(radii, R_s)
     F_EB = fluxratios / (1.0 - fluxratios)
     F_comp = fluxratios_comp / (1.0 - fluxratios_comp)
@@ -696,6 +990,7 @@ def _peb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps,
 
 
 @profiling.span("tri.sample.peb")
+@_routed(_peb_card)
 def sample_peb(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
                *, N, use_molusc, cc_filt, stratified=True, twin_n=0):
     """PEB: the target is an EB with an unresolved bound companion
@@ -761,20 +1056,8 @@ def _seb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
     if use_molusc:
         lnprior = torch.zeros_like(qs_comp)
     else:
-        # the prior's delta-mag combines the companion and its EB
-        # (ml.py:1200-1235); the span and counter of _companion_prior_bound
-        with profiling.span("tri.prior.companion"):
-            profiling.count("prior.companion", n)
-            if cc_filt is None:
-                fr_c, fr_e = fluxratios_comp, fluxratios
-            else:
-                fr_c = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
-                fr_e = _fluxratio_vs_target(masses, M_s, cc_filt)
-            delta_mags = 2.5 * torch.log10(fr_c / (1.0 - fr_c)
-                                           + fr_e / (1.0 - fr_e))
-            lnp = lnprior_bound_EB(M_s, plx, torch.abs(delta_mags), seps,
-                                   cons)
-            lnprior = clamp_companion_prior(lnp, delta_mags)
+        lnprior = _seb_prior_bound(M_s, plx, masses_comp, fluxratios_comp,
+                                   masses, fluxratios, cc_filt, seps, cons)
     kk, ksec = eb_radius_ratios(radii, radii_comp)
     F_EB = fluxratios / (1.0 - fluxratios)
     F_comp = fluxratios_comp / (1.0 - fluxratios_comp)
@@ -785,6 +1068,7 @@ def _seb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
 
 
 @profiling.span("tri.sample.seb")
+@_routed(_seb_card)
 def sample_seb(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
                u1_tab, u2_tab, seps, cons, *, N, use_molusc, cc_filt,
                stratified=True, twin_n=0):
@@ -855,24 +1139,9 @@ def _bg_eb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, n,
         fluxratios = _fluxratio_vs_target(masses, M_s) * dist_corr
         g_pri, g_sec = eb_dilution(fluxratios / (1.0 - fluxratios), F_comp,
                                    True)
-        # BEB's prior combines the background star and its EB; with a
-        # contrast curve both take the curve band's distance correction
-        # (ml.py:2160-2209)
-        if has_cc:
-            fr_c_cc = row["fluxratios_cc"]
-            fr_bound_cc = _fluxratio_vs_target(host_mass, M_s, cc_filt)
-            fr_eb_cc = (_fluxratio_vs_target(masses, M_s, cc_filt)
-                        * (fr_c_cc / fr_bound_cc))
-            delta_mags = 2.5 * torch.log10(fr_c_cc / (1.0 - fr_c_cc)
-                                           + fr_eb_cc / (1.0 - fr_eb_cc))
-            lnp = lnprior_background(N_comp, torch.abs(delta_mags), seps,
-                                     cons)
-        else:
-            delta_mags = 2.5 * torch.log10(F_comp
-                                           + fluxratios / (1.0 - fluxratios))
-            lnp = (torch.zeros_like(delta_mags)
-                   + math.log((N_comp / 0.1) * (1.0 / 3600.0) ** 2 * 2.2**2))
-        lnprior = clamp_companion_prior(lnp, delta_mags)
+        lnprior = _beb_prior(has_cc, N_comp, M_s, host_mass, masses,
+                             fluxratios, fluxratios_draw,
+                             row["fluxratios_cc"], cc_filt, seps, cons)
         u1s, u2s = row["u1s"], row["u2s"]
     else:
         host_mass, host_rad = M_s.expand(n), R_s.expand(n)
@@ -893,6 +1162,7 @@ def _bg_eb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, n,
 
 
 @profiling.span("tri.sample.background_eb")
+@_routed(_background_eb_card)
 def sample_background_eb(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons,
                          *, N, has_cc, host_is_bg, cc_filt="TESS",
                          stratified=True, twin_n=0):
