@@ -87,7 +87,6 @@ Drives the port's main path once at full size and checks it:
      1e-2 nats on the rows within 50 nats of the winner, the same -inf
      rows; prints both schedules' first and warm walls and the share of
      (draw, group) pairs the tab kernel solved (the warm call traced);
-  6. times three warm calc_probs calls with different seeds (v2);
   7. runs the four dormant nearby-star scenarios (lnZ_NTP_unknown and
      lnZ_NEB_unknown on the TRILEGAL lookalikes of a Tmag 13.2 star,
      lnZ_NTP_evolved and lnZ_NEB_evolved at R_s = 2.0) at N = 1e6 on v2,
@@ -122,12 +121,11 @@ Drives the port's main path once at full size and checks it:
 Prints a JSON line with the seven kernels' numbers, one with the sampler
 phase's rows, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero on any failure, without a
-CUDA card, and outside a checkout of the repository.
+CUDA card, and outside a checkout of the repository. It times kernels
+alone; a call's time, idle share and launches come from the benchmark
+(port_bench/run.py --trace 1, port_bench/spans.py).
 
 Run from the repository root:  python3 chip_smoke.py
-With --profile it also traces one warm calc_probs call on the kernel path
-and one on the plain path with torch.profiler (device time, idle share,
-kernel counts, the top device ops) before the JSON lines.
 """
 
 import json
@@ -140,35 +138,32 @@ from datetime import timedelta
 
 import numpy as np
 
+# The H100's peaks and the kernels' FP32 operation counts (an FMA counts
+# 2; one operation per + - * / and per IEEE function call, a floor: such a
+# function takes several instructions), as port_bench/roofline.py freezes
+# them: per point and node of chi2_supersampled (z^2 model 4, sqrt 2,
+# segment map 4, sqrt map 4, 2x 1, 17 Clenshaw steps x 3, final step and
+# clip 5, node weight 2) and per computed point its dilution and chi^2
+# update; per point of the orbit source (csrc/chi2_supersampled.cu) the
+# Kepler solve (kepler_sc) plus the Taylor z^2 model, or plus
+# projected_z at ns = 1, and per draw its constants and zmax; per
+# Chebyshev term in kappa of the tab kernel's coefficient stage
+# (tab_coeffs) its 162 basis FMAs and the recurrence step, and per draw
+# the 54 outputs' weighted sums, the weights, the kappa map and
+# _segments; per draw of the v3 kernels' transit window (transit_window)
+# the orbit's bounds and the model's margin, zeff and the arc's half
+# width, the spread, sqrt(1 -+ e) and the centres, seven eccentric
+# anomalies and their arguments, four mean-anomaly arcs, the window's
+# ends and tests
+from port_bench.roofline import (
+    FLOPS_NODE_POINT, FLOPS_ORBIT_DRAW, FLOPS_ORBIT_POINT, FLOPS_POINT,
+    FLOPS_TAB_DRAW, FLOPS_TAB_TERM, FLOPS_WINDOW_DRAW, PEAK_BYTES_S,
+    PEAK_FP32_S)
+
 N_DRAWS = 1_000_000
 NSAMPLES = 20
 EXPTIME = 0.00139
 SIGMA_GATE = 5e-4     # noise level of the kernel-comparison inputs
-# H100 SXM peaks at the 700 W limit (NVIDIA data sheet): HBM3 bytes/s and
-# FP32 (non-tensor) flop/s
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
-# FP32 flops (an FMA counts 2) of chi2_supersampled at one point and node:
-# z^2 model 4, sqrt 2, segment map 4, sqrt map 4, 2x 1, 17 Clenshaw steps
-# x 3, final step and clip 5, node weight 2; and per computed point the
-# dilution and chi^2 update, 6
-FLOPS_NODE_POINT = 73
-FLOPS_POINT = 6
-# The orbit source (csrc/chi2_supersampled.cu), one operation per + - * /
-# and per sqrt, cbrt, sin, cos, atan2 or rint (so a floor: the IEEE
-# functions take several instructions each): per point the Kepler solve
-# (kepler_sc) 91 plus the Taylor z^2 model 73, or plus projected_z's 24 at
-# ns = 1; per draw its constants and zmax, 38
-FLOPS_KEPLER = 91
-FLOPS_ORBIT_POINT = {True: FLOPS_KEPLER + 24, False: FLOPS_KEPLER + 73}
-FLOPS_ORBIT_DRAW = 38
-# The tab kernel's coefficient stage per draw (tab_coeffs), one operation
-# per + - * / and per log or sqrt: per Chebyshev term in kappa the 162
-# basis FMAs (2 each) and the recurrence step (2); per draw the 54 outputs'
-# weighted sums (one product and two FMAs, 5 each), the weights 10, the
-# kappa map 6 and _segments 14
-FLOPS_TAB_TERM = 2 * 162 + 2
-FLOPS_TAB_DRAW = 54 * 5 + 10 + 6 + 14
 # The exact kernel's coefficient stage per draw (ExactStage), one operation
 # per + - * / and per sqrt, sin, cos, atan2, abs, min, max, compare or
 # select: per deficit (occult_deficit) 87 outside its Gauss-Legendre loop
@@ -177,13 +172,6 @@ FLOPS_TAB_DRAW = 54 * 5 + 10 + 6 + 14
 # DCT's 54 x 18 multiply-adds (2 each) and _segments 14
 FLOPS_DEFICIT = 87 + 11 * 19
 FLOPS_EXACT_DRAW = 54 * (FLOPS_DEFICIT + 2) + 54 * 18 * 2 + 14
-# The v3 kernels' transit window per draw (transit_window), one operation
-# per + - * / and per sqrt, asin, sin, cos, atan2, floor or min: the
-# orbit's bounds and the model's margin 40, zeff and the arc's half width
-# 10, the spread, sqrt(1 -+ e) and the centres 6, seven eccentric
-# anomalies at 7 each plus their six arguments, four mean-anomaly arcs at
-# 10 each, the window's ends and tests 12
-FLOPS_WINDOW_DRAW = 40 + 10 + 6 + 7 * 7 + 6 + 4 * 10 + 12
 # device sleep queued before each timed call (~1 ms at the H100's clock)
 LEAD_CYCLES = 2_000_000
 # phase 3's shapes, shape i on draws of seed i: name, exposures, nsamples
@@ -1112,13 +1100,12 @@ def _only(c, name):
 
 
 def phase_slice(torch, chi2_core, tr, workdir):
-    """Phases 4, 5, v3 and 6 on bench.py's configuration plus two nearby
+    """Phases 4, 5 and v3 on bench.py's configuration plus two nearby
     stars. Returns each kernel's launches in its path's run (the tab
     kernel on the main path, the exact kernel under
     TRICERATOPS_COEFFS=exact, orbit v2 on the torch-stage route under it,
-    the v3 tab kernel under the v3 schedule, orbit v3 under both), run,
-    the target, phase 6's median and the sampler launches of phase 4's
-    call."""
+    the v3 tab kernel under the v3 schedule, orbit v3 under both), the
+    target and the sampler launches of phase 4's call."""
     import contextlib
 
     from triceratops_tpu_torch.ops import fastcore, lightcurve
@@ -1300,12 +1287,6 @@ def phase_slice(torch, chi2_core, tr, workdir):
     check(dz3_exact[near].max() < 1e-2,
           f"v3 and v2 lnZ under exact coefficients differ: {dz3_exact}")
 
-    torch.cuda.reset_peak_memory_stats()
-    walls = [run(seed) for seed in (2, 3, 4)]
-    med = float(np.median(walls))
-    print(f"phase 6: warm calc_probs walls {walls} s, median {med:.4f} s; "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     # each kernel's launches in its own path's run: the plane kernels are
     # on none
     launches = dict(
@@ -1316,7 +1297,7 @@ def phase_slice(torch, chi2_core, tr, workdir):
         chi2_from_orbit_v3=v3_exact_counts["launch.chi2_from_orbit_v3"],
         chi2_from_orbit_tab=main_counts["launch.chi2_from_orbit_tab"],
         chi2_from_orbit_v3_tab=v3_counts["launch.chi2_from_orbit_v3_tab"])
-    return launches, run, t, med, main_samplers
+    return launches, t, main_samplers
 
 
 def phase_long(chi2_core, t):
@@ -1635,7 +1616,7 @@ def _batch_rank(rank, store, entries, out_dir):
         dist.destroy_process_group()
 
 
-def phase_batch(torch, chi2_core, t465, workdir, warm_median):
+def phase_batch(torch, chi2_core, t465, workdir):
     """Phase 10: batch_fpp_full over 8 targets at N = 1e6 (ns = 20, n_t =
     100, sigma = 4e-4, the 3000-star field): phase 4's target with its two
     nearby stars, and seven one-star targets from seeded (Rp, P) rows
@@ -1705,8 +1686,7 @@ def phase_batch(torch, chi2_core, t465, workdir, warm_median):
     rerun = float(np.max(np.abs(cold[2][valid] - lnZ[valid])))
     print(f"phase 10 (i): batch_fpp_full, {N_BATCH} targets x N={N_DRAWS}, "
           f"mesh=None: cold {wall_cold:.4f} s, warm {wall_warm:.4f} s = "
-          f"{wall_warm / N_BATCH:.4f} s/target (phase 6 warm median "
-          f"{warm_median:.4f} s per 21-row call); "
+          f"{wall_warm / N_BATCH:.4f} s/target; "
           f"{c_warm[0]['launch.chi2_from_orbit_tab']} tab-kernel launches "
           f"per call (expected {expected}), sampler launches {c_warm[1]} "
           f"({rows_computed} rows computed); peak device "
@@ -1833,84 +1813,6 @@ def phase_parity():
           f"{wall:.1f} s; {'all gates pass' if ok else fails}")
     check(ok, f"phase 11 parity gates: {fails}")
     return wall
-
-
-def phase_profile(torch, run, backends=("auto", "torch")):
-    """One warm call per path under torch.profiler (CPU + CUDA), beside an
-    unprofiled warm call of the same path: the kernel launches of the
-    profiled call, device time (the summed durations of the device events:
-    kernels, copies and sets, each once), the device's idle share against
-    the unprofiled wall, the count of device events ("CUDA kernels"), host
-    self time, the top kernels and the torch ops that launch the most
-    device time, and the top host ops. Host ranges mark the likelihood
-    cores (api.lnL_planet / lnL_eb, whole chunk loops) and the per-chunk
-    coefficient stage inside them (lightcurve.deficit_coeffs)."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from triceratops_tpu_torch.ops import chi2_core, lightcurve
-    from triceratops_tpu_torch.scenarios import api
-
-    def ranged(name, fn):
-        def inner(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return inner
-
-    def launch_counts():
-        return {n: v for n, v in chi2_core.profiling.counters().items()
-                if n.startswith("launch.")}
-
-    marks = [(lightcurve, "deficit_coeffs", "range: deficit_coeffs"),
-             (api, "lnL_planet", "range: lnL core"),
-             (api, "lnL_eb", "range: lnL core")]
-    for backend in backends:
-        wall = run(6, backend)
-        saved = [getattr(m, n) for m, n, _ in marks]
-        for m, n, label in marks:
-            setattr(m, n, ranged(label, getattr(m, n)))
-        before = launch_counts()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                wall_prof = run(6, backend)
-        finally:
-            for (m, n, _), f in zip(marks, saved):
-                setattr(m, n, f)
-        launched = {n: v - before[n] for n, v in launch_counts().items()}
-        # a kernel is also in its launching op's self device time, and a
-        # range's device-side span covers its kernels: count device events
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("range: ")]
-        device_ms = sum(e.device_time_total for e in dev) / 1e3
-        per_kernel, calls = Counter(), Counter()
-        for e in dev:
-            per_kernel[e.name] += e.device_time_total
-            calls[e.name] += 1
-        ka = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CPU]
-        host_ms = sum(e.self_cpu_time_total for e in ka) / 1e3
-        print(f"profile {backend}: warm wall {wall:.4f} s unprofiled, "
-              f"{wall_prof:.4f} s profiled; launches {launched}; device "
-              f"time {device_ms:.1f} ms, idle share "
-              f"{1.0 - device_ms / (1e3 * wall):.3f}; {len(dev)} CUDA "
-              f"kernels; host self time {host_ms:.1f} ms")
-        for name, us in per_kernel.most_common(6):
-            print(f"profile {backend}:   kernel {name[:60]}: {calls[name]} "
-                  f"calls, {us / 1e3:.2f} ms device")
-        for e in sorted(ka, key=lambda e: e.self_device_time_total,
-                        reverse=True)[:6]:
-            print(f"profile {backend}:   op {e.key[:50]}: {e.count} calls, "
-                  f"{e.self_device_time_total / 1e3:.2f} ms device")
-        for e in ka:
-            if e.key.startswith("range: "):
-                print(f"profile {backend}:   {e.key}: {e.count} calls, "
-                      f"{e.cpu_time_total / 1e3:.1f} ms host (inclusive)")
-        for e in sorted(ka, key=lambda e: e.self_cpu_time_total,
-                        reverse=True)[:6]:
-            print(f"profile {backend}:   host {e.key[:50]}: {e.count} "
-                  f"calls, {e.self_cpu_time_total / 1e3:.1f} ms self")
 
 
 # sampler phase: draws a branch (the main path's 1e6 rounded up to the
@@ -2238,14 +2140,14 @@ def main():
         timing["targets"] = phase_kernel_targets(torch, chi2_core,
                                                  timing["slice"])
         with tempfile.TemporaryDirectory() as workdir:
-            launches, run, t, med, calc_samplers = phase_slice(
+            launches, t, calc_samplers = phase_slice(
                 torch, chi2_core, tr, workdir)
             phase_long(chi2_core, t)
             phase_dormant(torch, chi2_core, workdir)
             phase_ensemble(chi2_core, t)
             phase_likelihoods(torch)
             launches["chi2_from_orbit_tab"], batch_samplers = phase_batch(
-                torch, chi2_core, t, workdir, med)
+                torch, chi2_core, t, workdir)
             print(json.dumps({"kernels": kernel_rows(timing, launches,
                                                      build_s)}))
             # the sampler kernels' launches on the main path: phase 4's
@@ -2254,8 +2156,6 @@ def main():
                 "calc_probs": calc_samplers, f"batch_b{N_BATCH}":
                 batch_samplers}}))
             phase_parity()
-            if "--profile" in sys.argv[1:]:
-                phase_profile(torch, run)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,49 +1,31 @@
-"""Profile warm calc_probs calls of the PyTorch port on one NVIDIA GPU.
+"""Kernel checks of the PyTorch port on one NVIDIA GPU that compare trees.
 
-First times the tree's plane v2 kernel (``chi2_supersampled``, in every
-tree since the first) at 16384 draws x 100 points, GL-4, with
-chip_smoke.py's timer. Then builds chip_smoke.py's configuration
-(bench.py's TOI-465-like target, a 3000-star synthetic TRILEGAL field
-and two nearby stars; N = 1e6, nsamples = 20), makes one warm-up call,
-prints chip_smoke.py's phase 6 (three warm calls, seeds 2, 3, 4, and
-their median), then runs chip_smoke.py's profile phase on the kernel path
-(``backend="auto"``): an unprofiled warm call for the wall, and a call
-under torch.profiler for the kernel launches, device time, idle share,
-CUDA kernel count, the top device ops and the host ranges.
-
-    python3 profile_port.py [--tree DIR] [--walls] [--schedule 3]
-                            [--coeffs exact]
     python3 profile_port.py [--tree DIR] --v2-sweep tab,exact,copy
     python3 profile_port.py [--tree DIR] --tab-outputs FILE [--tab-against
                             FILE]
 
 --tree imports the port (triceratops_tpu_torch) from another checkout,
-e.g. an unpacked earlier commit, so that two trees are profiled by the
-same code in one run. --walls skips the kernel timing and the profile
-and prints only the warm walls. --schedule 3 runs every call under the
-v3 chi^2 schedule (ops/lightcurve.py::CHI2_SCHEDULE, what
-TRICERATOPS_PALLAS_V=3 selects). --coeffs exact runs every call on exact
-deficit coefficients (ops/fastcore.py::COEFFS_BACKEND, what
-TRICERATOPS_COEFFS=exact selects). The plain torch path's profile is
-``chip_smoke.py --profile``.
-
---v2-sweep instead times the named v2 orbit kernels (tab:
+e.g. an unpacked earlier commit, so that two trees are measured by the
+same code in one run.
+--v2-sweep times the named v2 orbit kernels (tab:
 ``chi2_from_orbit_tab``, the main path's; exact: ``chi2_from_orbit_exact``;
 copy: ``chi2_from_orbit``) at the main path's chunk on chip_smoke.py's
 seeded draws, GL-4, over curves of SWEEP_N_T evenly spaced exposures in
 each half span of SWEEP_SPANS (the short-curve and the long-curve cells'
 spans), with the share of (draw, group) pairs solved where the tree's
 kernel is windowed.
---tab-outputs instead saves the tab kernel's per-draw outputs at
-chip_smoke.py's phase-3 shapes (its draws at the main path's chunk) to
-FILE, and with --tab-against compares them with another tree's saved
-outputs: bit-identical, or the first draw that differs.
+--tab-outputs saves the tab kernel's per-draw outputs at chip_smoke.py's
+phase-3 shapes (its draws at the main path's chunk) to FILE, and with
+--tab-against compares them with another tree's saved outputs:
+bit-identical, or the first draw that differs.
+
+A call's time, idle share and launches come from the benchmark
+(port_bench/run.py --trace 1, port_bench/spans.py).
 """
 
 import argparse
 import importlib.util
 import sys
-import tempfile
 from pathlib import Path
 
 # --v2-sweep: the curves' exposures and half spans [d]
@@ -55,22 +37,17 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None,
                     help="checkout to import triceratops_tpu_torch from")
-    ap.add_argument("--walls", action="store_true",
-                    help="only the warm walls of chip_smoke.py's phase 6")
-    ap.add_argument("--schedule", choices=("2", "3"), default="2",
-                    help="the chi^2 kernel schedule of every call")
-    ap.add_argument("--coeffs", choices=("auto", "tab", "exact"),
-                    default="auto",
-                    help="the deficit coefficients of every call")
     ap.add_argument("--v2-sweep", default=None,
-                    help="only these v2 orbit kernels' times over curve "
-                         "lengths (comma-separated: tab, exact, copy)")
+                    help="these v2 orbit kernels' times over curve lengths "
+                         "(comma-separated: tab, exact, copy)")
     ap.add_argument("--tab-outputs", default=None,
-                    help="only save the tab kernel's outputs at phase 3's "
-                         "shapes to this file")
+                    help="save the tab kernel's outputs at phase 3's shapes "
+                         "to this file")
     ap.add_argument("--tab-against", default=None,
                     help="compare --tab-outputs with this file's")
     args = ap.parse_args()
+    if not (args.v2_sweep or args.tab_outputs):
+        ap.error("give --v2-sweep or --tab-outputs")
     here = Path(__file__).resolve().parent
     tree = Path(args.tree).resolve() if args.tree else here
     sys.path.insert(0, str(tree))
@@ -81,51 +58,14 @@ def main():
 
     import torch
     import triceratops_tpu_torch.triceratops as tr
-    from triceratops_tpu_torch.ops import fastcore, lightcurve
 
-    lightcurve.CHI2_SCHEDULE = args.schedule
-    fastcore.COEFFS_BACKEND = args.coeffs
     smoke.phase_device(torch)
-    print(f"profile_port: package {Path(tr.__file__).resolve().parent.parent}"
-          f", schedule {args.schedule}, coefficients {args.coeffs}")
+    print(f"profile_port: package {Path(tr.__file__).resolve().parent.parent}")
     if args.v2_sweep:
         v2_sweep(torch, smoke, args.v2_sweep.split(","))
     if args.tab_outputs:
         tab_outputs(torch, smoke, args.tab_outputs, args.tab_against)
-    if args.v2_sweep or args.tab_outputs:
-        return 0
-    if not args.walls:
-        plane_kernel_ms(torch, smoke)
-    with tempfile.TemporaryDirectory() as workdir:
-        _, run = smoke.make_run(tr, workdir)
-        print(f"profile_port: first call {run(1):.3f} s")
-        torch.cuda.reset_peak_memory_stats()
-        walls = [run(seed) for seed in (2, 3, 4)]
-        print(f"profile_port: warm calc_probs walls {walls} s, median "
-              f"{sorted(walls)[1]:.4f} s; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        if not args.walls:
-            smoke.phase_profile(torch, run, ("auto",))
     return 0
-
-
-def plane_kernel_ms(torch, smoke):
-    """chip_smoke.py's timing of chi2_supersampled on the planes of its
-    seeded n_t = 100 draws (fastcore.exposure_z2_poly, the same in every
-    tree)."""
-    from triceratops_tpu_torch.ops import chi2_core
-    from triceratops_tpu_torch.ops.fastcore import exposure_z2_poly
-
-    C, n_t = 16384, 100
-    orbit, rest, offs, wgts, _ = smoke._draws(torch, C, n_t, smoke.NSAMPLES,
-                                              0.15, seed=0)
-    q0, q1, q2, front = exposure_z2_poly(orbit[0], 0.0, *orbit[1:])
-    planes = (q0.contiguous(), q1.contiguous(), q2.contiguous(),
-              front.to(q0.dtype))
-    ms = smoke._median_ms(torch, lambda: chi2_core.chi2_supersampled(
-        *planes, *rest, offs=offs, wgts=wgts))
-    print(f"profile_port: chi2_supersampled C={C} n_t={n_t} "
-          f"nodes={len(offs)}: {ms:.4f} ms (median)")
 
 
 def v2_sweep(torch, smoke, kernels):

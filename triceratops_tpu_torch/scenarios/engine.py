@@ -175,51 +175,46 @@ def _fluxratio_vs_target(masses, M_s, filt="TESS"):
     return f / (f + ft)
 
 
-def _companion_prior_bound(kind, M_s, plx, masses_comp, fluxratios_comp,
-                           cc_filt, seps, cons):
+def _companion_prior_bound(kind, M_s, plx, cc_filt, seps, cons, *bodies):
     """Bound-companion prior block of the P*/S* scenarios (reference
-    ml.py:478-509, :695-727). kind: 'TP' or 'EB'. Without a contrast curve
-    (cc_filt None) the TESS-band flux ratios set delta_mag; with one, the
-    curve's band does. Runs in the span ``tri.prior.companion`` and counts
-    its draws under ``prior.companion``."""
+    ml.py:478-509, :695-727, :1200-1235). kind: 'TP' or 'EB'. bodies:
+    (masses, TESS-band flux ratios) of the companion and, for SEB, of its
+    EB; delta_mag is that of their summed flux. Without a contrast curve
+    (cc_filt None) the TESS-band flux ratios set it; with one, the curve's
+    band does. Runs in the span ``tri.prior.companion`` and counts its
+    draws under ``prior.companion``."""
     with profiling.span("tri.prior.companion"):
-        profiling.count("prior.companion", masses_comp.shape[0])
-        if cc_filt is None:
-            fr = fluxratios_comp
-        else:
-            fr = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
-        delta_mags = 2.5 * torch.log10(fr / (1.0 - fr))
+        profiling.count("prior.companion", bodies[0][0].shape[0])
+        F = []
+        for masses, fr in bodies:
+            if cc_filt is not None:
+                fr = _fluxratio_vs_target(masses, M_s, cc_filt)
+            F.append(fr / (1.0 - fr))
+        delta_mags = 2.5 * torch.log10(sum(F[1:], F[0]))
         fn = lnprior_bound_TP if kind == "TP" else lnprior_bound_EB
         lnp = fn(M_s, plx, torch.abs(delta_mags), seps, cons)
         return clamp_companion_prior(lnp, delta_mags)
 
 
-def _companion_lnprior(use_molusc, kind, M_s, plx, masses_comp,
-                       fluxratios_comp, cc_filt, seps, cons):
-    """A PTP / STP / PEB branch's log-prior: zero with MOLUSC rows, else
-    ``_companion_prior_bound``."""
+def _companion_lnprior(use_molusc, kind, M_s, plx, cc_filt, seps, cons,
+                       *bodies):
+    """A PTP / STP / PEB / SEB branch's log-prior: zero with MOLUSC rows,
+    else ``_companion_prior_bound``."""
     if use_molusc:
-        return torch.zeros_like(fluxratios_comp)
-    return _companion_prior_bound(kind, M_s, plx, masses_comp,
-                                  fluxratios_comp, cc_filt, seps, cons)
+        return torch.zeros_like(bodies[0][1])
+    return _companion_prior_bound(kind, M_s, plx, cc_filt, seps, cons,
+                                  *bodies)
 
 
-def _seb_prior_bound(M_s, plx, masses_comp, fluxratios_comp, masses,
-                     fluxratios, cc_filt, seps, cons):
-    """SEB's bound-companion prior block: its delta-mag combines the
-    companion and its EB (ml.py:1200-1235); the span and counter of
-    ``_companion_prior_bound``."""
-    with profiling.span("tri.prior.companion"):
-        profiling.count("prior.companion", masses_comp.shape[0])
-        if cc_filt is None:
-            fr_c, fr_e = fluxratios_comp, fluxratios
-        else:
-            fr_c = _fluxratio_vs_target(masses_comp, M_s, cc_filt)
-            fr_e = _fluxratio_vs_target(masses, M_s, cc_filt)
-        delta_mags = 2.5 * torch.log10(fr_c / (1.0 - fr_c)
-                                       + fr_e / (1.0 - fr_e))
-        lnp = lnprior_bound_EB(M_s, plx, torch.abs(delta_mags), seps, cons)
-        return clamp_companion_prior(lnp, delta_mags)
+def _bound_eb_lnprior(star, use_molusc, M_s, plx, f, cc_filt, seps, cons):
+    """The log-prior of a PEB (star 'P') or SEB (star 'S') branch's fields
+    f, on either path: SEB's delta-mag adds its EB to the companion
+    (ml.py:1200-1235)."""
+    bodies = [(f["masses_comp"], f["fluxratios_comp"])]
+    if star == "S":
+        bodies.append((f["masses"], f["fluxratios"]))
+    return _companion_lnprior(use_molusc, "EB", M_s, plx, cc_filt, seps,
+                              cons, *bodies)
 
 
 def _beb_prior(has_cc, N_comp, M_s, host_mass, masses, fluxratios,
@@ -256,6 +251,20 @@ def _background_prior(has_cc, N_comp, fluxratios_draw, delta_band_draw,
         delta_mags = delta_band_draw
         lnp = lnprior_background(N_comp, torch.abs(delta_mags), seps, cons)
     return clamp_companion_prior(lnp, delta_mags)
+
+
+def _bg_eb_lnprior(host_is_bg, has_cc, N_comp, M_s, f, band, cc_filt, seps,
+                   cons):
+    """The log-prior of a BEB (host_is_bg) or DEB branch's fields f, on
+    either path; band: the drawn rows' contrast-curve flux ratios (BEB) or
+    delta-mags (DEB), read only with a contrast curve. DEB takes the DTP
+    prior block (ml.py:1674-1701)."""
+    if host_is_bg:
+        return _beb_prior(has_cc, N_comp, M_s, f["host_mass"], f["masses"],
+                          f["fluxratios"], f["fluxratios_comp"], band,
+                          cc_filt, seps, cons)
+    return _background_prior(has_cc, N_comp, f["fluxratios_comp"], band,
+                             seps, cons)
 
 
 def _drawn_rows(tab, idxs, fields):
@@ -303,19 +312,22 @@ _SHARED_TWIN_KEYS = ("incs_twin", "a_twin", "b_twin", "mask_twin",
 _M_S, _PLX = sk.SCALARS.index("M_s"), sk.SCALARS.index("plx")
 
 
-def _eb_branch_card(gen, entry, star, scalars, n, names, *, lattice,
+def _eb_branch_card(gen, mode, star, scalars, n, names, *, lattice,
                     draw_rows=None, **kw):
-    """One EB branch on the card: (fields with P, scal, drawn rows). Its
-    uniform streams (6 for stars P and S, else 5), lattice permutations
-    and drawn rows (``draw_rows(gen, n)``) come in the plain chain's
-    order; its periods and their mean are torch's; the kernel does the
-    rest."""
+    """One EB branch on the card (mode as ``_eb_split``'s): (fields with P,
+    scal, drawn rows). Its uniform streams (6 for stars P and S, else 5),
+    lattice permutations and drawn rows (``draw_rows(gen, n)``) come in
+    the plain chain's order; its periods and their mean are torch's; the
+    kernel does the rest and returns ``_EB_KEYS``, the shared-draw twin
+    fields in mode "shared", and ``names``."""
     u = _uniforms(gen, 6 if star in "PS" else 5, n)
     perm = _lattice_perms(gen, len(u) - 2, n) if lattice else None
     idx = None if draw_rows is None else draw_rows(gen, n)
     P = _draw_P_card(u[0], scalars[0], scalars[1])
-    f, scal = sk.launch(entry, star, n, u, scalars, names, P=P,
-                        P_mean=P.mean(), perm=perm, idx=idx, **kw)
+    names = _EB_KEYS + (_SHARED_TWIN_KEYS if mode == "shared" else ()) + names
+    f, scal = sk.launch("twin" if mode == "twin" else "eb", star, n, u,
+                        scalars, names, P=P, P_mean=P.mean(), perm=perm,
+                        idx=idx, shared_twin=mode == "shared", **kw)
     return {"P": P, **f}, scal, idx
 
 
@@ -337,8 +349,8 @@ def _ptp_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
                         flatpriors=flatpriors, stratified=stratified,
                         use_molusc=use_molusc)
     f["lnprior"] = _companion_lnprior(
-        use_molusc, "TP", scal[_M_S], scal[_PLX], f.pop("masses_comp", None),
-        f["fluxratios_comp"], cc_filt, seps, cons)
+        use_molusc, "TP", scal[_M_S], scal[_PLX], cc_filt, seps, cons,
+        (f.pop("masses_comp", None), f["fluxratios_comp"]))
     return f
 
 
@@ -353,8 +365,8 @@ def _stp_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
                         ldc=(u1_tab, u2_tab), flatpriors=flatpriors,
                         stratified=stratified, use_molusc=use_molusc)
     f["lnprior"] = _companion_lnprior(
-        use_molusc, "TP", scal[_M_S], scal[_PLX], f["masses_comp"],
-        f["fluxratios_comp"], cc_filt, seps, cons)
+        use_molusc, "TP", scal[_M_S], scal[_PLX], cc_filt, seps, cons,
+        (f["masses_comp"], f["fluxratios_comp"]))
     return f
 
 
@@ -377,64 +389,36 @@ def _background_planet_card(gen, P_lo, P_hi, M_s, R_s, bg, seps, cons, *, N,
 
 def _teb_card(gen, P_lo, P_hi, M_s, R_s, Teff, *, N, stratified=True,
               twin_n=0):
-    star = (P_lo, P_hi, M_s, R_s, Teff)
-    split = bool(stratified and twin_n)
-    d, _, _ = _eb_branch_card(
-        gen, "eb", "T", star, N,
-        _EB_KEYS + (() if split else _SHARED_TWIN_KEYS), lattice=False,
-        stratified=stratified, shared_twin=not split)
-    if split:
-        t, _, _ = _eb_branch_card(gen, "twin", "T", star, twin_n, _EB_KEYS,
-                                  lattice=True)
-        t["lnprior"] = torch.zeros_like(t["P"])
-        d["twin"] = t
-    else:
-        d["twin"] = _twin_alias(d)
-    return d
+    def branch(n, mode):
+        return _eb_branch_card(gen, mode, "T", (P_lo, P_hi, M_s, R_s, Teff),
+                               n, (), lattice=mode == "twin",
+                               stratified=stratified)[0]
+    return _eb_split(branch, N, stratified, twin_n)
 
 
 def _bound_eb_card(star, gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
                    ldc, seps, cons, N, use_molusc, cc_filt, stratified,
                    twin_n):
     """PEB (star P) and SEB (star S) on the card."""
-    scalars = (P_lo, P_hi, M_s, R_s, Teff, plx)
-    split = bool(stratified and twin_n)
     comp = ("fluxratios_comp", "masses_comp") + (
         ("radii_comp", "u1s", "u2s") if star == "S" else ())
-    kw = dict(qs_in=qs_comp_in if use_molusc else None, ldc=ldc,
-              use_molusc=use_molusc)
 
-    def lnprior(f, scal):
+    def rows(g, n):
+        return _randint(g, n, qs_comp_in.shape[0])
+
+    def branch(n, mode):
+        f, scal, _ = _eb_branch_card(
+            gen, mode, star, (P_lo, P_hi, M_s, R_s, Teff, plx), n, comp,
+            lattice=stratified,
+            draw_rows=rows if use_molusc and mode == "twin" else None,
+            qs_in=qs_comp_in if use_molusc else None, ldc=ldc,
+            use_molusc=use_molusc, stratified=stratified)
+        f["lnprior"] = _bound_eb_lnprior(star, use_molusc, scal[_M_S],
+                                         scal[_PLX], f, cc_filt, seps, cons)
         if star == "P":
-            return _companion_lnprior(
-                use_molusc, "EB", scal[_M_S], scal[_PLX],
-                f.pop("masses_comp"), f["fluxratios_comp"], cc_filt, seps,
-                cons)
-        if use_molusc:
-            return torch.zeros_like(f["P"])
-        return _seb_prior_bound(scal[_M_S], scal[_PLX], f["masses_comp"],
-                                f["fluxratios_comp"], f["masses"],
-                                f["fluxratios"], cc_filt, seps, cons)
-
-    d, scal, _ = _eb_branch_card(
-        gen, "eb", star, scalars, N,
-        _EB_KEYS + (() if split else _SHARED_TWIN_KEYS) + comp,
-        lattice=stratified, stratified=stratified, shared_twin=not split,
-        **kw)
-    d["lnprior"] = lnprior(d, scal)
-    if not split:
-        d["twin"] = _twin_alias(d)
-        return d
-    rows = None
-    if use_molusc:
-        def rows(g, n):
-            return _randint(g, n, qs_comp_in.shape[0])
-    t, scal, _ = _eb_branch_card(gen, "twin", star, scalars, twin_n,
-                                 _EB_KEYS + comp, lattice=True,
-                                 draw_rows=rows, **kw)
-    t["lnprior"] = lnprior(t, scal)
-    d["twin"] = t
-    return d
+            del f["masses_comp"]  # PEB returns no companion masses
+        return f
+    return _eb_split(branch, N, stratified, twin_n)
 
 
 def _peb_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
@@ -455,43 +439,26 @@ def _seb_card(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
 def _background_eb_card(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, *,
                         N, has_cc, host_is_bg, cc_filt="TESS",
                         stratified=True, twin_n=0):
-    scalars = (P_lo, P_hi, M_s, R_s, Teff)
-    split = bool(stratified and twin_n)
-    star = "B" if host_is_bg else "D"
     N_comp = bg["pack"].shape[0]
+    band = "fluxratios_cc" if host_is_bg else "delta_band"
     extra = (("fluxratios_comp", "host_mass", "host_rad")
-             + (("u1s", "u2s") if host_is_bg else ()))
-    if has_cc:
-        extra += ("fluxratios_cc",) if host_is_bg else ("delta_band",)
+             + (("u1s", "u2s") if host_is_bg else ())
+             + ((band,) if has_cc else ()))
 
     def rows(g, n):
         return _background_idxs(g, bg, n, host_is_bg)[0]
 
-    def lnprior(f, scal):
-        if host_is_bg:
-            return _beb_prior(has_cc, N_comp, scal[_M_S], f["host_mass"],
-                              f["masses"], f["fluxratios"],
-                              f["fluxratios_comp"],
-                              f.pop("fluxratios_cc", None), cc_filt, seps,
-                              cons)
-        return _background_prior(has_cc, N_comp, f["fluxratios_comp"],
-                                 f.pop("delta_band", None), seps, cons)
-
-    d, scal, idxs = _eb_branch_card(
-        gen, "eb", star, scalars, N,
-        _EB_KEYS + (() if split else _SHARED_TWIN_KEYS) + extra,
-        lattice=False, draw_rows=rows, pack=bg["pack"],
-        stratified=stratified, shared_twin=not split)
-    d["lnprior"], d["idxs"] = lnprior(d, scal), idxs
-    if not split:
-        d["twin"] = _twin_alias(d)
-        return d
-    t, scal, idxs = _eb_branch_card(gen, "twin", star, scalars, twin_n,
-                                    _EB_KEYS + extra, lattice=True,
-                                    draw_rows=rows, pack=bg["pack"])
-    t["lnprior"], t["idxs"] = lnprior(t, scal), idxs
-    d["twin"] = t
-    return d
+    def branch(n, mode):
+        f, scal, idxs = _eb_branch_card(
+            gen, mode, "B" if host_is_bg else "D",
+            (P_lo, P_hi, M_s, R_s, Teff), n, extra, lattice=mode == "twin",
+            draw_rows=rows, pack=bg["pack"], stratified=stratified)
+        f["lnprior"] = _bg_eb_lnprior(host_is_bg, has_cc, N_comp,
+                                      scal[_M_S], f, f.pop(band, None),
+                                      cc_filt, seps, cons)
+        f["idxs"] = idxs
+        return f
+    return _eb_split(branch, N, stratified, twin_n)
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +510,8 @@ def sample_ptp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
     qs_comp = _companion_qs(gen, u[5], M_s, qs_comp_in, N, use_molusc)
     masses_comp = qs_comp * M_s
     fluxratios_comp = _fluxratio_vs_target(masses_comp, M_s)
-    lnprior = _companion_lnprior(use_molusc, "TP", M_s, plx, masses_comp,
-                                 fluxratios_comp, cc_filt, seps, cons)
+    lnprior = _companion_lnprior(use_molusc, "TP", M_s, plx, cc_filt, seps,
+                                 cons, (masses_comp, fluxratios_comp))
     P = _draw_P(u[0], P_lo, P_hi)
     rps = sample_rp(u[1], M_s.expand(N), flatpriors)
     eccs = sample_ecc(u[3], True, P.mean())
@@ -587,8 +554,8 @@ def sample_stp(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
     fluxratios_comp = _fluxratio_vs_target(masses_comp, M_s)
     u1s, u2s = _companion_ldc(masses_comp, radii_comp, teffs_comp, u1_tab,
                               u2_tab)
-    lnprior = _companion_lnprior(use_molusc, "TP", M_s, plx, masses_comp,
-                                 fluxratios_comp, cc_filt, seps, cons)
+    lnprior = _companion_lnprior(use_molusc, "TP", M_s, plx, cc_filt, seps,
+                                 cons, (masses_comp, fluxratios_comp))
     P = _draw_P(u[0], P_lo, P_hi)
     rps = sample_rp(u[1], masses_comp, flatpriors)
     eccs = sample_ecc(u[3], True, P.mean())
@@ -711,12 +678,15 @@ def sample_ntp_unknown(gen, P_lo, P_hi, pop, *, N, flatpriors,
 # ---------------------------------------------------------------------------
 # EB-family samplers and the EBx2P twin machinery
 #
-# With stratified=True and twin_n > 0, sample_teb returns d["twin"]: an
-# independent conditioned draw set of size twin_n (q | q >= 0.95 with
+# With stratified=True and twin_n > 0, every EB sampler returns d["twin"]:
+# an independent conditioned draw set of size twin_n (q | q >= 0.95 with
 # ln-weight log P(q >= 0.95), a grazing-edge cos(inc) mixture, and
 # Latin-hypercube strata over (inc, q, w, ecc)). With twin_n = 0 or
 # stratified=False the legacy shared-draw twin branch is kept and
 # d["twin"] is an aliased view of it (see the JAX engine's module notes).
+# One rule, _eb_split, forms the twin branch on both paths: the plain
+# chain's branches come from _eb_plain over a sampler's field block, the
+# card's from _eb_branch_card.
 # ---------------------------------------------------------------------------
 
 # Grazing-edge mixture components (mass, edge-width fraction of the
@@ -781,42 +751,52 @@ def _twin_q(u, M_q):
 
 
 def _twin_geom(P, M_tot, R_host_rsun, radii_rsun, eccs, argps_deg, u_inc,
-               coll_R_occ_cm, Ptra_R_occ_cm=None):
-    """Twin-branch geometry at 2P on a conditioned draw set with the
-    grazing-edge inclination mixture. Ptra_R_occ_cm overrides the
-    transit-probability radius (NEB_evolved's 2 R_s, reference
-    ml.py:3052)."""
+               *, conditioned, stratified=True, R_tra_cm=None):
+    """Twin-branch geometry at 2P with collision radius 2 R_host: on a
+    conditioned draw set the grazing-edge inclination mixture, on shared
+    draws ``_inc_weighted``'s (reference ml.py:253-268). R_tra_cm
+    overrides the transit-probability radius (NEB_evolved's 2 R_s,
+    reference ml.py:3052)."""
     a_twin = _semimajor(2.0 * P, M_tot)
     sin_argp = torch.sin(argps_deg * PI / 180.0)
     e_corr = (1.0 + eccs * sin_argp) / (1.0 - eccs**2)
     R_occ = (radii_rsun * RSUN + R_host_rsun * RSUN
-             if Ptra_R_occ_cm is None else Ptra_R_occ_cm)
+             if R_tra_cm is None else R_tra_cm)
     Ptra = R_occ / a_twin * e_corr
     r_twin = a_twin * (1.0 - eccs**2) / (1.0 + eccs * sin_argp)
-    coll = coll_R_occ_cm > a_twin * (1.0 - eccs)
-    incs, tra_ok, lnw = _inc_twin_mixture(u_inc, Ptra)
+    coll = 2.0 * R_host_rsun * RSUN > a_twin * (1.0 - eccs)
+    if conditioned:
+        incs, tra_ok, lnw = _inc_twin_mixture(u_inc, Ptra)
+    else:
+        incs, tra_ok, lnw = _inc_weighted(u_inc, Ptra, stratified)
     b = _impact_param(r_twin, incs, R_host_rsun)
     return dict(a=a_twin, incs=incs, b=b, geo_ok=tra_ok & ~coll, lnw=lnw)
+
+
+def _eb_normal_branch(P, M_tot, R_host_rsun, radii_rsun, eccs, argps_deg,
+                      u_inc, stratified):
+    """Normal-branch geometry."""
+    a, Ptra, coll, r = _geom_base(P, M_tot, R_host_rsun, radii_rsun * RSUN,
+                                  eccs, argps_deg)
+    incs, tra_ok, lnw = _inc_weighted(u_inc, Ptra, stratified)
+    b = _impact_param(r, incs, R_host_rsun)
+    return dict(a=a, incs=incs, b=b, geo_ok=tra_ok & ~coll, lnw=lnw)
 
 
 def _and(mask, extra_ok):
     return mask if extra_ok is None else mask & extra_ok
 
 
-def _twin_pack(P, qs, eccs, argps, masses, radii, fluxratios, tb,
-               R_host_rsun, kk, ksec, g_pri, g_sec, lnqmass, extra_ok=None,
-               lnprior=None, **extra):
-    """Assemble a conditioned twin dict with the normal branch's field
-    names, so consumers are uniform."""
-    inc_rad, w_rad = _kernel_angles(tb["incs"], argps)
-    d = dict(P=P, qs=qs, eccs=eccs, argps=argps, masses=masses, radii=radii,
-             fluxratios=fluxratios, a=tb["a"], incs=tb["incs"], b=tb["b"],
-             mask=_and(tb["geo_ok"], extra_ok), lnw=tb["lnw"] + lnqmass,
-             inc_rad=inc_rad, w_rad=w_rad, k=kk, ksec=ksec, g_pri=g_pri,
-             g_sec=g_sec, a_R=tb["a"] / (R_host_rsun * RSUN),
-             lnprior=torch.zeros_like(P) if lnprior is None else lnprior)
-    d.update(extra)
-    return d
+def _geom_fields(g, argps, R_host_rsun, mask, suffix=""):
+    """A branch's geometry fields as the samplers name them; suffix
+    "_twin" names a shared-draw twin's, which shares w_rad."""
+    inc_rad, w_rad = _kernel_angles(g["incs"], argps)
+    out = dict(incs=g["incs"], a=g["a"], b=g["b"], mask=mask, lnw=g["lnw"],
+               inc_rad=inc_rad, a_R=g["a"] / (R_host_rsun * RSUN))
+    if suffix:
+        return {k + suffix: v for k, v in out.items()}
+    out["w_rad"] = w_rad
+    return out
 
 
 # per-draw companion / background fields a twin view shares with the
@@ -831,97 +811,109 @@ def _twin_alias(d):
              masses=d["masses"], radii=d["radii"],
              fluxratios=d["fluxratios"], a=d["a_twin"], incs=d["incs_twin"],
              b=d["b_twin"], mask=d["mask_twin"], lnw=d["lnw_twin"],
-             inc_rad=d["inc_rad_twin"], w_rad=d["w_rad"],
-             k=d.get("k_twin", d["k"]), ksec=d.get("ksec_twin", d["ksec"]),
-             g_pri=d["g_pri"], g_sec=d["g_sec"],
+             inc_rad=d["inc_rad_twin"], w_rad=d["w_rad"], k=d["k"],
+             ksec=d["ksec"], g_pri=d["g_pri"], g_sec=d["g_sec"],
              a_R=d["a_R_twin"],
              lnprior=d.get("lnprior", torch.zeros_like(d["P"])))
     t.update((n, d[n]) for n in _TWIN_SHARED if n in d)
     return t
 
 
-def _eb_normal_branch(P, M_tot, R_host_rsun, radii_rsun, eccs, argps_deg,
-                      u_inc, stratified):
-    """Normal-branch geometry only (the twin has its own draw set)."""
-    a, Ptra, coll, r = _geom_base(P, M_tot, R_host_rsun, radii_rsun * RSUN,
-                                  eccs, argps_deg)
-    incs, tra_ok, lnw = _inc_weighted(u_inc, Ptra, stratified)
-    b = _impact_param(r, incs, R_host_rsun)
-    return dict(a=a, incs=incs, b=b, geo_ok=tra_ok & ~coll, lnw=lnw)
-
-
-def _eb_pack_normal(d, P, qs, eccs, argps, masses, radii, fluxratios,
-                    nb, R_host_rsun, kk, ksec, g_pri, g_sec, extra_ok=None):
-    """Normal-branch fields of an EB sampler output (twin in d['twin'])."""
-    inc_rad, w_rad = _kernel_angles(nb["incs"], argps)
-    d.update(
-        P=P, incs=nb["incs"], qs=qs, eccs=eccs, argps=argps, masses=masses,
-        radii=radii, fluxratios=fluxratios, a=nb["a"], b=nb["b"],
-        mask=_and(nb["geo_ok"] & (qs < 0.95), extra_ok), lnw=nb["lnw"],
-        inc_rad=inc_rad, w_rad=w_rad, k=kk, ksec=ksec, g_pri=g_pri,
-        g_sec=g_sec, a_R=nb["a"] / (R_host_rsun * RSUN))
+def _eb_split(branch, N, stratified, twin_n):
+    """The twin-branch rule of every EB sampler, plain chain and card.
+    branch(n, mode) draws one branch of n draws: "normal", "twin" (a
+    conditioned twin draw set) or "shared" (the normal branch with the
+    legacy shared-draw twin fields). With stratified and twin_n > 0, the
+    normal branch of N draws and d["twin"] its own twin draw set of twin_n,
+    whose ln-prior is zero where the family has none; else the shared
+    branch, with d["twin"] a view of its twin fields."""
+    if not (stratified and twin_n):
+        d = branch(N, "shared")
+        d["twin"] = _twin_alias(d)
+        return d
+    d = branch(N, "normal")
+    t = branch(twin_n, "twin")
+    if "lnprior" not in t:
+        t["lnprior"] = torch.zeros_like(t["P"])
+    d["twin"] = t
     return d
 
 
-def _eb_branches(P, M_tot, R_host_rsun, radii_rsun, eccs, argps_deg, u_inc,
-                 twin_R_occ_cm, stratified):
-    """Normal + twin-branch geometry on shared draws; the twin uses 2P and
-    the caller's collision radius (reference ml.py:253-268)."""
-    nb = _eb_normal_branch(P, M_tot, R_host_rsun, radii_rsun, eccs,
-                           argps_deg, u_inc, stratified)
-    a_twin = _semimajor(2.0 * P, M_tot)
-    sin_argp = torch.sin(argps_deg * PI / 180.0)
-    e_corr = (1.0 + eccs * sin_argp) / (1.0 - eccs**2)
-    R_host_cm = R_host_rsun * RSUN
-    Ptra_twin = (radii_rsun * RSUN + R_host_cm) / a_twin * e_corr
-    r_twin = a_twin * (1.0 - eccs**2) / (1.0 + eccs * sin_argp)
-    coll_twin = twin_R_occ_cm > a_twin * (1.0 - eccs)
-    incs_t, tra_ok_t, lnw_t = _inc_weighted(u_inc, Ptra_twin, stratified)
-    b_twin = _impact_param(r_twin, incs_t, R_host_rsun)
-    tb = dict(a=a_twin, incs=incs_t, b=b_twin, geo_ok=tra_ok_t & ~coll_twin,
-              lnw=lnw_t)
-    return nb, tb
+# the keys of a field block that only _eb_plain reads
+_BLOCK_ONLY = ("u_inc", "lnqmass", "ok", "M_host", "R_host")
 
 
-def _eb_pack(d, P, qs, eccs, argps, masses, radii, fluxratios,
-             nb, tb, R_host_rsun, kk, ksec, g_pri, g_sec, extra_ok=None):
-    inc_rad, w_rad = _kernel_angles(nb["incs"], argps)
-    inc_rad_t, _ = _kernel_angles(tb["incs"], argps)
-    d.update(
-        P=P, incs=nb["incs"], incs_twin=tb["incs"], qs=qs, eccs=eccs,
-        argps=argps, masses=masses, radii=radii, fluxratios=fluxratios,
-        a=nb["a"], b=nb["b"], a_twin=tb["a"], b_twin=tb["b"],
-        mask=_and(nb["geo_ok"] & (qs < 0.95), extra_ok),
-        mask_twin=_and(tb["geo_ok"] & (qs >= 0.95), extra_ok),
-        lnw=nb["lnw"], lnw_twin=tb["lnw"],
-        inc_rad=inc_rad, inc_rad_twin=inc_rad_t, w_rad=w_rad,
-        k=kk, ksec=ksec, g_pri=g_pri, g_sec=g_sec,
-        a_R=nb["a"] / (R_host_rsun * RSUN),
-        a_R_twin=tb["a"] / (R_host_rsun * RSUN))
-    return d
+def _eb_plain(block, N, stratified, twin_n, R_tra_twin=None):
+    """An EB sampler's plain chain: ``_eb_split`` over block(n, twin), a
+    field block (``_eb_block``), and the branch's geometry around the
+    block's host. R_tra_twin: ``_twin_geom``'s R_tra_cm."""
+    def branch(n, mode):
+        f = block(n, mode == "twin")
+        u_inc, lnqmass, ok, M_host, R_host = (f.pop(k) for k in _BLOCK_ONLY)
+        P, qs, argps = f["P"], f["qs"], f["argps"]
+        geom = (P, M_host + f["masses"], R_host, f["radii"], f["eccs"], argps,
+                u_inc)
+        if mode == "twin":
+            tb = _twin_geom(*geom, conditioned=True, R_tra_cm=R_tra_twin)
+            tb["lnw"] = tb["lnw"] + lnqmass
+            f.update(_geom_fields(tb, argps, R_host, _and(tb["geo_ok"], ok)))
+            return f
+        nb = _eb_normal_branch(*geom, stratified)
+        f.update(_geom_fields(nb, argps, R_host,
+                              _and(nb["geo_ok"] & (qs < 0.95), ok)))
+        if mode == "shared":
+            tb = _twin_geom(*geom, conditioned=False, stratified=stratified,
+                            R_tra_cm=R_tra_twin)
+            f.update(_geom_fields(tb, argps, R_host,
+                                  _and(tb["geo_ok"] & (qs >= 0.95), ok),
+                                  "_twin"))
+        return f
+    return _eb_split(branch, N, stratified, twin_n)
 
 
-def _teb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, n, twin):
-    """Shared TEB field block; twin=True conditions q on the twin band and
-    stratifies the (inc, q, w, ecc) streams."""
-    u = _uniforms(gen, 5, n)
-    if twin:
-        u = _lattice_strat(u, (1, 2, 4, 3), n, gen)
+def _eb_draws(gen, n_streams, lattice, P_lo, P_hi, M_q, n, twin):
+    """(u, f): a branch's uniform streams, Latin-hypercube-stratified over
+    (inc, q, w, ecc[, q_comp]) if lattice, and f its periods, mass ratios
+    for a primary of mass M_q (q | q >= 0.95 on a twin set, with their
+    ln-mass), eccentricities, arguments of periastron, inclination stream
+    and ln-mass."""
+    u = _uniforms(gen, n_streams, n)
+    if lattice:
+        u = _lattice_strat(u, (1, 2, 4, 3, 5)[:n_streams - 1], n, gen)
     P = _draw_P(u[0], P_lo, P_hi)
     if twin:
-        qs, lnqmass = _twin_q(u[2], M_s)
+        qs, lnqmass = _twin_q(u[2], M_q)
     else:
-        qs, lnqmass = sample_q(u[2], M_s), 0.0
-    eccs = sample_ecc(u[3], False, P.mean())
-    argps = sample_w(u[4])
-    masses = qs * M_s
-    radii, _ = stellar_relations(masses, R_s.expand(n), Teff.expand(n))
-    fluxratios = _fluxratio_vs_target(masses, M_s)
-    kk, ksec = eb_radius_ratios(radii, R_s)
+        qs, lnqmass = sample_q(u[2], M_q), 0.0
+    return u, dict(P=P, qs=qs, eccs=sample_ecc(u[3], False, P.mean()),
+                   argps=sample_w(u[4]), u_inc=u[1], lnqmass=lnqmass)
+
+
+def _eb_block(f, masses, radii, fluxratios, M_host, R_host, F_comp,
+              on_companion, ok=None, **extra):
+    """A field block of ``_eb_plain``: ``_eb_draws``' f with the EB's
+    masses, radii and flux ratios, its radius ratios and dilutions around
+    the host (M_host, R_host) under a diluting flux F_comp (None: none),
+    the draws' extra mask ok and the branch's extra output fields."""
+    kk, ksec = eb_radius_ratios(radii, R_host)
     F_EB = fluxratios / (1.0 - fluxratios)
-    g_pri, g_sec = eb_dilution(F_EB, torch.zeros_like(F_EB), False)
-    return u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios, \
-        kk, ksec, g_pri, g_sec
+    g_pri, g_sec = eb_dilution(
+        F_EB, torch.zeros_like(F_EB) if F_comp is None else F_comp,
+        on_companion)
+    f.update(masses=masses, radii=radii, fluxratios=fluxratios, k=kk,
+             ksec=ksec, g_pri=g_pri, g_sec=g_sec, ok=ok, M_host=M_host,
+             R_host=R_host, **extra)
+    return f
+
+
+def _teb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, M_q, n, twin):
+    """TEB's (and NEB_evolved's, M_q = 1) field block: the EB around the
+    target, q drawn for a primary of mass M_q."""
+    _, f = _eb_draws(gen, 5, twin, P_lo, P_hi, M_q, n, twin)
+    masses = f["qs"] * M_s
+    radii, _ = stellar_relations(masses, R_s.expand(n), Teff.expand(n))
+    return _eb_block(f, masses, radii, _fluxratio_vs_target(masses, M_s),
+                     M_s, R_s, None, False)
 
 
 @profiling.span("tri.sample.teb")
@@ -933,60 +925,27 @@ def sample_teb(gen, P_lo, P_hi, M_s, R_s, Teff, *, N, stratified=True,
     branch runs on its own conditioned draw set."""
     P_lo, P_hi, M_s, R_s, Teff = _scalars(gen.device, P_lo, P_hi, M_s, R_s,
                                           Teff)
-    (u, P, qs, _, eccs, argps, masses, radii, fluxratios,
-     kk, ksec, g_pri, g_sec) = _teb_fields(gen, P_lo, P_hi, M_s, R_s, Teff,
-                                           N, twin=False)
-    if stratified and twin_n:
-        nb = _eb_normal_branch(P, M_s + masses, R_s, radii, eccs, argps,
-                               u[1], stratified)
-        d = _eb_pack_normal({}, P, qs, eccs, argps, masses, radii,
-                            fluxratios, nb, R_s, kk, ksec, g_pri, g_sec)
-        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt,
-         kkt, ksect, g_prit, g_sect) = _teb_fields(
-            gen, P_lo, P_hi, M_s, R_s, Teff, twin_n, twin=True)
-        tbt = _twin_geom(Pt, M_s + massest, R_s, radiit, eccst, argpst,
-                         ut[1], 2.0 * R_s * RSUN)
-        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
-                               tbt, R_s, kkt, ksect, g_prit, g_sect, lnqm)
-        return d
-    nb, tb = _eb_branches(P, M_s + masses, R_s, radii, eccs, argps, u[1],
-                          2.0 * R_s * RSUN, stratified)
-    d = _eb_pack({}, P, qs, eccs, argps, masses, radii, fluxratios,
-                 nb, tb, R_s, kk, ksec, g_pri, g_sec)
-    d["twin"] = _twin_alias(d)
-    return d
-
+    return _eb_plain(functools.partial(_teb_fields, gen, P_lo, P_hi, M_s,
+                                       R_s, Teff, M_s), N, stratified, twin_n)
 
 
 def _peb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps,
-                cons, n, use_molusc, cc_filt, twin, lattice=True):
-    """Shared PEB field block. twin=True conditions q on the twin band;
-    lattice=True Latin-hypercube-stratifies the (inc, q, w, ecc, q_comp)
-    streams (the companion axis is the needle dimension of PEB)."""
-    u = _uniforms(gen, 6, n)
-    if lattice:
-        u = _lattice_strat(u, (1, 2, 4, 3, 5), n, gen)
-    P = _draw_P(u[0], P_lo, P_hi)
-    if twin:
-        qs, lnqmass = _twin_q(u[2], M_s)
-    else:
-        qs, lnqmass = sample_q(u[2], M_s), 0.0
-    eccs = sample_ecc(u[3], False, P.mean())
-    argps = sample_w(u[4])
+                cons, use_molusc, cc_filt, stratified, n, twin):
+    """PEB's field block; stratified Latin-hypercube-stratifies the
+    companion stream too (the needle dimension of PEB)."""
+    u, f = _eb_draws(gen, 6, stratified, P_lo, P_hi, M_s, n, twin)
     qs_comp = _companion_qs(gen, u[5], M_s, qs_comp_in, n, use_molusc, twin)
-    masses = qs * M_s
+    masses = f["qs"] * M_s
     radii, _ = stellar_relations(masses, R_s.expand(n), Teff.expand(n))
-    fluxratios = _fluxratio_vs_target(masses, M_s)
     masses_comp = qs_comp * M_s
-    fluxratios_comp = _fluxratio_vs_target(masses_comp, M_s)
-    lnprior = _companion_lnprior(use_molusc, "EB", M_s, plx, masses_comp,
-                                 fluxratios_comp, cc_filt, seps, cons)
-    kk, ksec = eb_radius_ratios(radii, R_s)
-    F_EB = fluxratios / (1.0 - fluxratios)
-    F_comp = fluxratios_comp / (1.0 - fluxratios_comp)
-    g_pri, g_sec = eb_dilution(F_EB, F_comp, False)
-    return (u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios,
-            qs_comp, fluxratios_comp, lnprior, kk, ksec, g_pri, g_sec)
+    fr_comp = _fluxratio_vs_target(masses_comp, M_s)
+    f = _eb_block(f, masses, radii, _fluxratio_vs_target(masses, M_s), M_s,
+                  R_s, fr_comp / (1.0 - fr_comp), False, qs_comp != 0.0,
+                  fluxratios_comp=fr_comp, masses_comp=masses_comp)
+    f["lnprior"] = _bound_eb_lnprior("P", use_molusc, M_s, plx, f, cc_filt,
+                                     seps, cons)
+    del f["masses_comp"]  # PEB returns no companion masses
+    return f
 
 
 @profiling.span("tri.sample.peb")
@@ -997,74 +956,34 @@ def sample_peb(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
     (reference ml.py:589-866)."""
     P_lo, P_hi, M_s, R_s, Teff, plx = _scalars(gen.device, P_lo, P_hi, M_s,
                                                R_s, Teff, plx)
-    (u, P, qs, _, eccs, argps, masses, radii, fluxratios, qs_comp,
-     fluxratios_comp, lnprior, kk, ksec, g_pri, g_sec) = _peb_fields(
-        gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons, N,
-        use_molusc, cc_filt, twin=False, lattice=stratified)
-    extra = dict(fluxratios_comp=fluxratios_comp, lnprior=lnprior)
-    if stratified and twin_n:
-        nb = _eb_normal_branch(P, M_s + masses, R_s, radii, eccs, argps,
-                               u[1], stratified)
-        d = _eb_pack_normal(extra, P, qs, eccs, argps, masses, radii,
-                            fluxratios, nb, R_s, kk, ksec, g_pri, g_sec,
-                            qs_comp != 0.0)
-        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt, qs_compt,
-         fr_compt, lnpriort, kkt, ksect, g_prit, g_sect) = _peb_fields(
-            gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps, cons,
-            twin_n, use_molusc, cc_filt, twin=True)
-        tbt = _twin_geom(Pt, M_s + massest, R_s, radiit, eccst, argpst,
-                         ut[1], 2.0 * R_s * RSUN)
-        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
-                               tbt, R_s, kkt, ksect, g_prit, g_sect, lnqm,
-                               extra_ok=qs_compt != 0.0, lnprior=lnpriort,
-                               fluxratios_comp=fr_compt)
-        return d
-    nb, tb = _eb_branches(P, M_s + masses, R_s, radii, eccs, argps, u[1],
-                          2.0 * R_s * RSUN, stratified)
-    d = _eb_pack(extra, P, qs, eccs, argps, masses, radii, fluxratios,
-                 nb, tb, R_s, kk, ksec, g_pri, g_sec, qs_comp != 0.0)
-    d["twin"] = _twin_alias(d)
-    return d
+    return _eb_plain(functools.partial(
+        _peb_fields, gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, seps,
+        cons, use_molusc, cc_filt, stratified), N, stratified, twin_n)
 
 
 def _seb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
-                u2_tab, seps, cons, n, use_molusc, cc_filt, twin,
-                lattice=True):
-    """Shared SEB field block: the companion chain, its per-draw LDC and
-    the EB around it. The companion-host stream (axis 5) sets the whole
+                u2_tab, seps, cons, use_molusc, cc_filt, stratified, n, twin):
+    """SEB's field block: the companion chain, its per-draw LDC and the EB
+    around it. The companion-host stream (axis 5) sets the whole
     dilution / LDC chain, so it joins the lattice."""
-    u = _uniforms(gen, 6, n)
-    if lattice:
-        u = _lattice_strat(u, (1, 2, 4, 3, 5), n, gen)
-    P = _draw_P(u[0], P_lo, P_hi)
-    if twin:
-        qs, lnqmass = _twin_q(u[2], M_s)
-    else:
-        qs, lnqmass = sample_q(u[2], M_s), 0.0
-    eccs = sample_ecc(u[3], False, P.mean())
-    argps = sample_w(u[4])
+    u, f = _eb_draws(gen, 6, stratified, P_lo, P_hi, M_s, n, twin)
     qs_comp = _companion_qs(gen, u[5], M_s, qs_comp_in, n, use_molusc, twin)
     masses_comp = qs_comp * M_s
     radii_comp, teffs_comp = stellar_relations(masses_comp, R_s.expand(n),
                                                Teff.expand(n))
-    fluxratios_comp = _fluxratio_vs_target(masses_comp, M_s)
+    fr_comp = _fluxratio_vs_target(masses_comp, M_s)
     u1s, u2s = _companion_ldc(masses_comp, radii_comp, teffs_comp, u1_tab,
                               u2_tab)
-    masses = qs * masses_comp
+    masses = f["qs"] * masses_comp
     radii, _ = stellar_relations(masses, radii_comp, teffs_comp)
-    fluxratios = _fluxratio_vs_target(masses, M_s)
-    if use_molusc:
-        lnprior = torch.zeros_like(qs_comp)
-    else:
-        lnprior = _seb_prior_bound(M_s, plx, masses_comp, fluxratios_comp,
-                                   masses, fluxratios, cc_filt, seps, cons)
-    kk, ksec = eb_radius_ratios(radii, radii_comp)
-    F_EB = fluxratios / (1.0 - fluxratios)
-    F_comp = fluxratios_comp / (1.0 - fluxratios_comp)
-    g_pri, g_sec = eb_dilution(F_EB, F_comp, True)
-    return (u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios,
-            qs_comp, masses_comp, radii_comp, fluxratios_comp, u1s, u2s,
-            lnprior, kk, ksec, g_pri, g_sec)
+    f = _eb_block(f, masses, radii, _fluxratio_vs_target(masses, M_s),
+                  masses_comp, radii_comp, fr_comp / (1.0 - fr_comp), True,
+                  qs_comp != 0.0, fluxratios_comp=fr_comp,
+                  masses_comp=masses_comp, radii_comp=radii_comp, u1s=u1s,
+                  u2s=u2s)
+    f["lnprior"] = _bound_eb_lnprior("S", use_molusc, M_s, plx, f, cc_filt,
+                                     seps, cons)
+    return f
 
 
 @profiling.span("tri.sample.seb")
@@ -1077,88 +996,43 @@ def sample_seb(gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in,
     mass (ml.py:1193-1196)."""
     P_lo, P_hi, M_s, R_s, Teff, plx = _scalars(gen.device, P_lo, P_hi, M_s,
                                                R_s, Teff, plx)
-    (u, P, qs, _, eccs, argps, masses, radii, fluxratios, qs_comp,
-     masses_comp, radii_comp, fluxratios_comp, u1s, u2s, lnprior,
-     kk, ksec, g_pri, g_sec) = _seb_fields(
-        gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab, u2_tab,
-        seps, cons, N, use_molusc, cc_filt, twin=False, lattice=stratified)
-    extra = dict(fluxratios_comp=fluxratios_comp, lnprior=lnprior,
-                 masses_comp=masses_comp, radii_comp=radii_comp,
-                 u1s=u1s, u2s=u2s)
-    if stratified and twin_n:
-        nb = _eb_normal_branch(P, masses_comp + masses, radii_comp, radii,
-                               eccs, argps, u[1], stratified)
-        d = _eb_pack_normal(extra, P, qs, eccs, argps, masses, radii,
-                            fluxratios, nb, radii_comp, kk, ksec, g_pri,
-                            g_sec, qs_comp != 0.0)
-        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt, qs_compt,
-         m_compt, r_compt, fr_compt, u1st, u2st, lnpriort, kkt, ksect,
-         g_prit, g_sect) = _seb_fields(
-            gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
-            u2_tab, seps, cons, twin_n, use_molusc, cc_filt, twin=True)
-        tbt = _twin_geom(Pt, m_compt + massest, r_compt, radiit, eccst,
-                         argpst, ut[1], 2.0 * r_compt * RSUN)
-        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
-                               tbt, r_compt, kkt, ksect, g_prit, g_sect,
-                               lnqm, extra_ok=qs_compt != 0.0,
-                               lnprior=lnpriort, fluxratios_comp=fr_compt,
-                               masses_comp=m_compt, radii_comp=r_compt,
-                               u1s=u1st, u2s=u2st)
-        return d
-    nb, tb = _eb_branches(P, masses_comp + masses, radii_comp, radii, eccs,
-                          argps, u[1], 2.0 * radii_comp * RSUN, stratified)
-    d = _eb_pack(extra, P, qs, eccs, argps, masses, radii, fluxratios,
-                 nb, tb, radii_comp, kk, ksec, g_pri, g_sec, qs_comp != 0.0)
-    d["twin"] = _twin_alias(d)
-    return d
+    return _eb_plain(functools.partial(
+        _seb_fields, gen, P_lo, P_hi, M_s, R_s, Teff, plx, qs_comp_in, u1_tab,
+        u2_tab, seps, cons, use_molusc, cc_filt, stratified), N, stratified,
+        twin_n)
 
 
-def _bg_eb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, n,
-                  has_cc, host_is_bg, cc_filt, twin):
-    """Shared DEB / BEB field block, with its own background-row draws."""
-    u = _uniforms(gen, 5, n)
-    if twin:
-        u = _lattice_strat(u, (1, 2, 4, 3), n, gen)
+def _bg_eb_fields(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, has_cc,
+                  host_is_bg, cc_filt, n, twin):
+    """DEB's / BEB's field block, with its own background-row draws."""
+    _, f = _eb_draws(gen, 5, twin, P_lo, P_hi, M_s, n, twin)
     idxs, row, N_comp = _draw_background(gen, bg, n, host_is_bg)
-    fluxratios_draw = row["fluxratios"]
-    P = _draw_P(u[0], P_lo, P_hi)
-    if twin:
-        qs, lnqmass = _twin_q(u[2], M_s)
-    else:
-        qs, lnqmass = sample_q(u[2], M_s), 0.0
-    eccs = sample_ecc(u[3], False, P.mean())
-    argps = sample_w(u[4])
-    F_comp = fluxratios_draw / (1.0 - fluxratios_draw)
+    fr_draw = row["fluxratios"]
+    extra = {}
     if host_is_bg:
         host_mass, host_rad = row["masses"], row["radii"]
-        pop_ok = _host_is_bg_ok(row)
-        masses = qs * host_mass
+        ok = _host_is_bg_ok(row)
+        masses = f["qs"] * host_mass
         radii, _ = stellar_relations(masses, host_rad, row["teffs"])
         # distance correction of the EB's flux ratio (ml.py:2146-2159)
-        dist_corr = fluxratios_draw / _fluxratio_vs_target(host_mass, M_s)
-        fluxratios = _fluxratio_vs_target(masses, M_s) * dist_corr
-        g_pri, g_sec = eb_dilution(fluxratios / (1.0 - fluxratios), F_comp,
-                                   True)
-        lnprior = _beb_prior(has_cc, N_comp, M_s, host_mass, masses,
-                             fluxratios, fluxratios_draw,
-                             row["fluxratios_cc"], cc_filt, seps, cons)
-        u1s, u2s = row["u1s"], row["u2s"]
+        fluxratios = _fluxratio_vs_target(masses, M_s) * (
+            fr_draw / _fluxratio_vs_target(host_mass, M_s))
+        extra = dict(u1s=row["u1s"], u2s=row["u2s"])
     else:
         host_mass, host_rad = M_s.expand(n), R_s.expand(n)
-        pop_ok = torch.ones_like(fluxratios_draw, dtype=torch.bool)
-        masses = qs * M_s
+        ok = torch.ones_like(fr_draw, dtype=torch.bool)
+        masses = f["qs"] * M_s
         radii, _ = stellar_relations(masses, R_s.expand(n), Teff.expand(n))
         fluxratios = _fluxratio_vs_target(masses, M_s)
-        g_pri, g_sec = eb_dilution(fluxratios / (1.0 - fluxratios), F_comp,
-                                   False)
-        # DEB uses the DTP prior block (ml.py:1674-1701)
-        lnprior = _background_prior(has_cc, N_comp, fluxratios_draw,
-                                    row["delta_band"], seps, cons)
-        u1s = u2s = None
-    kk, ksec = eb_radius_ratios(radii, host_rad)
-    return (u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios,
-            fluxratios_draw, idxs, host_mass, host_rad, u1s, u2s, pop_ok,
-            lnprior, kk, ksec, g_pri, g_sec)
+    f = _eb_block(f, masses, radii, fluxratios, host_mass, host_rad,
+                  fr_draw / (1.0 - fr_draw), host_is_bg, ok,
+                  fluxratios_comp=fr_draw, idxs=idxs, host_mass=host_mass,
+                  host_rad=host_rad, **extra)
+    f["lnprior"] = _bg_eb_lnprior(
+        host_is_bg, has_cc, N_comp, M_s, f,
+        row["fluxratios_cc" if host_is_bg else "delta_band"], cc_filt, seps,
+        cons)
+    return f
 
 
 @profiling.span("tri.sample.background_eb")
@@ -1171,143 +1045,50 @@ def sample_background_eb(gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons,
     (reference ml.py:1571-1837, :2038-2362)."""
     P_lo, P_hi, M_s, R_s, Teff = _scalars(gen.device, P_lo, P_hi, M_s, R_s,
                                           Teff)
-    (u, P, qs, _, eccs, argps, masses, radii, fluxratios, fluxratios_draw,
-     idxs, host_mass, host_rad, u1s, u2s, pop_ok, lnprior,
-     kk, ksec, g_pri, g_sec) = _bg_eb_fields(
-        gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, N, has_cc,
-        host_is_bg, cc_filt, twin=False)
-    extra = dict(fluxratios_comp=fluxratios_draw, lnprior=lnprior, idxs=idxs,
-                 host_mass=host_mass, host_rad=host_rad)
-    if u1s is not None:
-        extra["u1s"], extra["u2s"] = u1s, u2s
-    if stratified and twin_n:
-        nb = _eb_normal_branch(P, host_mass + masses, host_rad, radii, eccs,
-                               argps, u[1], stratified)
-        d = _eb_pack_normal(extra, P, qs, eccs, argps, masses, radii,
-                            fluxratios, nb, host_rad, kk, ksec, g_pri,
-                            g_sec, pop_ok)
-        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt, fr_drawt,
-         idxst, h_mt, h_rt, u1st, u2st, pop_okt, lnpriort,
-         kkt, ksect, g_prit, g_sect) = _bg_eb_fields(
-            gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons, twin_n, has_cc,
-            host_is_bg, cc_filt, twin=True)
-        tbt = _twin_geom(Pt, h_mt + massest, h_rt, radiit, eccst, argpst,
-                         ut[1], 2.0 * h_rt * RSUN)
-        textra = dict(fluxratios_comp=fr_drawt, idxs=idxst, host_mass=h_mt,
-                      host_rad=h_rt)
-        if u1st is not None:
-            textra["u1s"], textra["u2s"] = u1st, u2st
-        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
-                               tbt, h_rt, kkt, ksect, g_prit, g_sect, lnqm,
-                               extra_ok=pop_okt, lnprior=lnpriort, **textra)
-        return d
-    nb, tb = _eb_branches(P, host_mass + masses, host_rad, radii, eccs,
-                          argps, u[1], 2.0 * host_rad * RSUN, stratified)
-    d = _eb_pack(extra, P, qs, eccs, argps, masses, radii, fluxratios,
-                 nb, tb, host_rad, kk, ksec, g_pri, g_sec, pop_ok)
-    d["twin"] = _twin_alias(d)
-    return d
-
-
-def _neb_evolved_fields(gen, P_lo, P_hi, M_s, R_s, Teff, n, twin):
-    """NEB_evolved field block: q is drawn as for a one-solar-mass primary,
-    the EB's flux ratio against the host."""
-    u = _uniforms(gen, 5, n)
-    if twin:
-        u = _lattice_strat(u, (1, 2, 4, 3), n, gen)
-    one = torch.ones((), dtype=F32, device=gen.device)
-    P = _draw_P(u[0], P_lo, P_hi)
-    if twin:
-        qs, lnqmass = _twin_q(u[2], one)
-    else:
-        qs, lnqmass = sample_q(u[2], one), 0.0
-    eccs = sample_ecc(u[3], False, P.mean())
-    argps = sample_w(u[4])
-    masses = qs * M_s
-    radii, _ = stellar_relations(masses, R_s.expand(n), Teff.expand(n))
-    fluxratios = _fluxratio_vs_target(masses, M_s)
-    F_EB = fluxratios / (1.0 - fluxratios)
-    g_pri, g_sec = eb_dilution(F_EB, torch.zeros_like(F_EB), False)
-    return (u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios,
-            g_pri, g_sec)
+    return _eb_plain(functools.partial(
+        _bg_eb_fields, gen, P_lo, P_hi, M_s, R_s, Teff, bg, seps, cons,
+        has_cc, host_is_bg, cc_filt), N, stratified, twin_n)
 
 
 @profiling.span("tri.sample.neb_evolved")
 def sample_neb_evolved(gen, P_lo, P_hi, M_s, R_s, Teff, *, N,
                        stratified=True, twin_n=0):
     """NEB for a subgiant (logg = 3.0 sets M_s on the host; reference
-    ml.py:2969-3178). The twin branch keeps two quirks: its transit
-    probability and collision radius are 2 R_s (not radii + R_s,
+    ml.py:2969-3178). q is drawn as for a one-solar-mass primary, the EB's
+    flux ratio against the host. The twin branch keeps two quirks: its
+    transit probability and collision radius are 2 R_s (not radii + R_s,
     ml.py:3052), and its lnL takes R_EB = R_s, so k = ksec = 1 before the
     0.999 adjustment (ml.py:3100)."""
     P_lo, P_hi, M_s, R_s, Teff = _scalars(gen.device, P_lo, P_hi, M_s, R_s,
                                           Teff)
-    (u, P, qs, _, eccs, argps, masses, radii, fluxratios,
-     g_pri, g_sec) = _neb_evolved_fields(gen, P_lo, P_hi, M_s, R_s, Teff, N,
-                                         twin=False)
-    kk, ksec = eb_radius_ratios(radii, R_s)
-    R_occ2 = 2.0 * R_s * RSUN
-    if stratified and twin_n:
-        nb = _eb_normal_branch(P, M_s + masses, R_s, radii, eccs, argps,
-                               u[1], stratified)
-        d = _eb_pack_normal({}, P, qs, eccs, argps, masses, radii,
-                            fluxratios, nb, R_s, kk, ksec, g_pri, g_sec)
-        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt,
-         g_prit, g_sect) = _neb_evolved_fields(gen, P_lo, P_hi, M_s, R_s,
-                                               Teff, twin_n, twin=True)
-        tbt = _twin_geom(Pt, M_s + massest, R_s, radiit, eccst, argpst,
-                         ut[1], R_occ2, Ptra_R_occ_cm=R_occ2)
-        k_t, ksec_t = eb_radius_ratios(R_s.expand(twin_n), R_s)
-        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
-                               tbt, R_s, k_t, ksec_t, g_prit, g_sect, lnqm)
-        return d
-    nb = _eb_normal_branch(P, M_s + masses, R_s, radii, eccs, argps, u[1],
-                           stratified)
-    # the legacy shared-draw twin branch with the 2 R_s quirks
-    a_twin = _semimajor(2.0 * P, M_s + masses)
-    sin_argp = torch.sin(argps * PI / 180.0)
-    e_corr = (1.0 + eccs * sin_argp) / (1.0 - eccs**2)
-    r_twin = a_twin * (1.0 - eccs**2) / (1.0 + eccs * sin_argp)
-    incs_t, tra_ok_t, lnw_t = _inc_weighted(u[1], R_occ2 / a_twin * e_corr,
-                                            stratified)
-    tb = dict(a=a_twin, incs=incs_t, b=_impact_param(r_twin, incs_t, R_s),
-              geo_ok=tra_ok_t & ~(R_occ2 > a_twin * (1.0 - eccs)),
-              lnw=lnw_t)
-    d = _eb_pack({}, P, qs, eccs, argps, masses, radii, fluxratios, nb, tb,
-                 R_s, kk, ksec, g_pri, g_sec)
-    d["k_twin"], d["ksec_twin"] = eb_radius_ratios(R_s.expand(N), R_s)
-    d["twin"] = _twin_alias(d)
+    one = torch.ones((), dtype=F32, device=gen.device)
+    d = _eb_plain(functools.partial(_teb_fields, gen, P_lo, P_hi, M_s, R_s,
+                                    Teff, one), N, stratified, twin_n,
+                  R_tra_twin=2.0 * R_s * RSUN)
+    t = d["twin"]
+    t["k"], t["ksec"] = eb_radius_ratios(R_s.expand(t["P"].shape[0]), R_s)
+    if not (stratified and twin_n):
+        d["k_twin"], d["ksec_twin"] = t["k"], t["ksec"]
     return d
 
 
 def _neb_unknown_fields(gen, P_lo, P_hi, pop, n, twin):
-    """NEB_unknown field block, with its own lookalike-row draws: q is
+    """NEB_unknown's field block, with its own lookalike-row draws: q is
     drawn as for a one-solar-mass primary and the EB's flux ratio is taken
     against the drawn host in the TESS band, whatever the mission
     (reference ml.py:2672-2676)."""
-    u = _uniforms(gen, 5, n)
-    if twin:
-        u = _lattice_strat(u, (1, 2, 4, 3), n, gen)
+    one = torch.ones((), dtype=F32, device=gen.device)
+    _, f = _eb_draws(gen, 5, twin, P_lo, P_hi, one, n, twin)
     idxs, row, pop_ok = _draw_lookalike(gen, pop, n)
     host_mass, host_rad = row["masses"], row["radii"]
-    one = torch.ones((), dtype=F32, device=gen.device)
-    P = _draw_P(u[0], P_lo, P_hi)
-    if twin:
-        qs, lnqmass = _twin_q(u[2], one)
-    else:
-        qs, lnqmass = sample_q(u[2], one), 0.0
-    eccs = sample_ecc(u[3], False, P.mean())
-    argps = sample_w(u[4])
-    masses = qs * host_mass
+    masses = f["qs"] * host_mass
     radii, _ = stellar_relations(masses, host_rad, row["teffs"])
     f_eb = flux_relation(masses, "TESS")
     fluxratios = f_eb / (f_eb + flux_relation(host_mass, "TESS"))
-    kk, ksec = eb_radius_ratios(radii, host_rad)
-    F_EB = fluxratios / (1.0 - fluxratios)
-    g_pri, g_sec = eb_dilution(F_EB, torch.zeros_like(F_EB), False)
-    return (u, P, qs, lnqmass, eccs, argps, masses, radii, fluxratios,
-            idxs, host_mass, host_rad, row["u1s"], row["u2s"], pop_ok, kk,
-            ksec, g_pri, g_sec)
+    return _eb_block(f, masses, radii, fluxratios, host_mass, host_rad, None,
+                     False, pop_ok, idxs=idxs, host_mass=host_mass,
+                     host_rad=host_rad, u1s=row["u1s"], u2s=row["u2s"],
+                     lnprior=torch.zeros_like(masses))
 
 
 @profiling.span("tri.sample.neb_unknown")
@@ -1317,33 +1098,7 @@ def sample_neb_unknown(gen, P_lo, P_hi, pop, *, N, stratified=True,
     lookalike population (reference ml.py:2554-2829). The twin draw set
     has its own lookalike rows and limb darkening."""
     P_lo, P_hi = _scalars(gen.device, P_lo, P_hi)
-    (u, P, qs, _, eccs, argps, masses, radii, fluxratios, idxs,
-     host_mass, host_rad, u1s, u2s, pop_ok, kk, ksec,
-     g_pri, g_sec) = _neb_unknown_fields(gen, P_lo, P_hi, pop, N,
-                                         twin=False)
-    extra = dict(idxs=idxs, host_mass=host_mass, host_rad=host_rad,
-                 u1s=u1s, u2s=u2s, g=torch.ones_like(P),
-                 lnprior=torch.zeros_like(P))
-    if stratified and twin_n:
-        nb = _eb_normal_branch(P, host_mass + masses, host_rad, radii, eccs,
-                               argps, u[1], stratified)
-        d = _eb_pack_normal(extra, P, qs, eccs, argps, masses, radii,
-                            fluxratios, nb, host_rad, kk, ksec, g_pri,
-                            g_sec, pop_ok)
-        (ut, Pt, qst, lnqm, eccst, argpst, massest, radiit, frt, idxst,
-         h_mt, h_rt, u1st, u2st, pop_okt, kkt, ksect,
-         g_prit, g_sect) = _neb_unknown_fields(gen, P_lo, P_hi, pop, twin_n,
-                                               twin=True)
-        tbt = _twin_geom(Pt, h_mt + massest, h_rt, radiit, eccst, argpst,
-                         ut[1], 2.0 * h_rt * RSUN)
-        d["twin"] = _twin_pack(Pt, qst, eccst, argpst, massest, radiit, frt,
-                               tbt, h_rt, kkt, ksect, g_prit, g_sect, lnqm,
-                               extra_ok=pop_okt, idxs=idxst, host_mass=h_mt,
-                               host_rad=h_rt, u1s=u1st, u2s=u2st)
-        return d
-    nb, tb = _eb_branches(P, host_mass + masses, host_rad, radii, eccs,
-                          argps, u[1], 2.0 * host_rad * RSUN, stratified)
-    d = _eb_pack(extra, P, qs, eccs, argps, masses, radii, fluxratios,
-                 nb, tb, host_rad, kk, ksec, g_pri, g_sec, pop_ok)
-    d["twin"] = _twin_alias(d)
+    d = _eb_plain(functools.partial(_neb_unknown_fields, gen, P_lo, P_hi,
+                                    pop), N, stratified, twin_n)
+    d["g"] = torch.ones_like(d["P"])
     return d
